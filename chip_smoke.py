@@ -10,13 +10,16 @@ non-zero without the final line:
    and power limit;
 2. build: every ``s3grl_tpu_torch/csrc/*.cu`` through nvcc, with each
    kernel's registers, shared memory and spills from ``-Xptxas -v``;
-3. kernels: each kernel of the path against its plain torch version on the
-   card, at the main path's shapes and on the main path's data, with its
-   time, the plain version's time and the least time the card could take;
+3. kernels: each kernel of the paths against its plain torch version on
+   the card, at the main path's shapes and on the main path's data, with
+   its time, the plain version's time and the least time the card could
+   take; ``bsr_spmm`` also on a Cora-shaped random graph, with the
+   edge-list route's time and one ``torch.sparse.mm`` as a yardstick;
 4. end to end: ``run_sgrl_learning`` on a synthetic USAir-shaped graph
-   with the bench.py config (USAir PoS, sign_k 3, 2 hops, degree features,
-   hidden 256, batch 32, lr 1e-4), 5 epochs, seed 1; the kernel's launch
-   count in that run, and its best test AUC against the JAX package's on
+   with the bench.py config (USAir, sign_k 3, 2 hops, degree features,
+   hidden 256, batch 32, lr 1e-4), 5 epochs, seed 1, once per sign type
+   (PoS; SoP and hybrid with ``pool_operatorwise``); each kernel's launch
+   count in each run, and its best test AUC against the JAX package's on
    the same graph and config.
 
 Imports nothing of JAX or the JAX package. Exits 2 when CUDA is missing.
@@ -31,60 +34,30 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
 SEED = 1
 EPOCHS = 5
-# The JAX package's best test AUC (in percent) on usair_like_edges(SEED)
-# with this script's config and EPOCHS epochs, on the CPU, from
-#   JAX_PLATFORMS=cpu python scripts/jax_synthetic_auc.py --seed 1 --epochs 5
-JAX_REFERENCE_AUC = 77.23776146708104
+# The JAX package's best test AUC (in percent) on
+# tests/torch_port_helpers.usair_like_edges(SEED)
+# with this script's config and EPOCHS epochs, by sign type, on the CPU, from
+#   JAX_PLATFORMS=cpu python scripts/jax_synthetic_auc.py --seed 1 --epochs 5 \
+#       --sign_type {PoS,SoP,hybrid}
+JAX_REFERENCE_AUC = {
+    "PoS": 77.23776146708104,
+    "SoP": 76.65145804403888,
+    "hybrid": 78.48971764861469,
+}
 AUC_SLACK = 3.0  # the port may fall at most 0.03 below it
 TOL = dict(rtol=2e-3, atol=2e-4)
+BSR_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_pallas_spmm.py's bar
+# The end-to-end paths, each with the kernels it must launch.
+PATHS = {"PoS": ("pos_power_rows",), "SoP": ("bsr_spmm",),
+         "hybrid": ("pos_power_rows", "bsr_spmm")}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12  # float32 outside the tensor cores, the same sheet
-
-
-def usair_like_edges(seed: int, n: int = 332, p_triad: float = 0.9,
-                     alpha: float = 1.5):
-    """A graph of USAir's shape (copy of tests/torch_port_helpers.py):
-    preferential attachment (weight degree**alpha) with triad formation
-    (Holme–Kim); each new node adds 6 or 7 edges. Returns a symmetrized
-    [2, 2E] int32 edge index."""
-    rng = np.random.default_rng(seed)
-    m0 = 7
-    adj = [set() for _ in range(n)]
-    deg = np.zeros(n)
-    for i in range(m0):
-        for j in range(i):
-            adj[i].add(j)
-            adj[j].add(i)
-    deg[:m0] = m0 - 1
-    for v in range(m0, n):
-        m = 6 + int(rng.random() < 0.5)
-        last = None
-        k = 0
-        while k < m:
-            u = None
-            if last is not None and rng.random() < p_triad:
-                cand = sorted(adj[last] - adj[v] - {v})
-                if cand:
-                    u = cand[int(rng.integers(len(cand)))]
-            if u is None:
-                p = deg[:v] ** alpha
-                u = int(rng.choice(v, p=p / p.sum()))
-            if u in adj[v]:
-                continue
-            adj[v].add(u)
-            adj[u].add(v)
-            deg[u] += 1
-            deg[v] += 1
-            last = u
-            k += 1
-    src = np.array([u for u in range(n) for w in sorted(adj[u])], dtype=np.int32)
-    dst = np.array([w for u in range(n) for w in sorted(adj[u])], dtype=np.int32)
-    return np.stack([src, dst])
 
 
 def bench_config(seed: int, epochs: int, results_dir: str):
@@ -103,6 +76,7 @@ def split_graph(cfg):
     from s3grl_tpu_torch.data.graph import Graph
     from s3grl_tpu_torch.data.split import do_edge_split
     from s3grl_tpu_torch.utils.seeding import seed_everything
+    from torch_port_helpers import usair_like_edges
 
     g = Graph(num_nodes=332, edge_index=usair_like_edges(cfg.seed))
     rng, _ = seed_everything(cfg.seed)
@@ -199,6 +173,13 @@ def kernel_cases(cfg, graph, split):
     return cases, D, F
 
 
+def bound_ms_of(n_bytes: float, flops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of the bytes over the card's memory
+    rate and the operations over its f32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def bound_of(kw) -> tuple[float, str, float, float]:
     """(bound_ms, bound_by, bytes, flops) for one call: each input read and
     each output written once; operations as this data needs them (one
@@ -216,9 +197,7 @@ def bound_of(kw) -> tuple[float, str, float, float]:
     _, found = _resolve_slots(nbr, kw["row_ids"], S)
     nnz = int((found & (w.reshape(B, -1) != 0)).sum())
     flops = 2.0 * (K * R * nnz + K * R * B * S * F)
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return 1e3 * max(t_bytes, t_ops), by, n_bytes, flops
+    return (*bound_ms_of(n_bytes, flops), n_bytes, flops)
 
 
 def phase_kernels(cfg, graph, split, power_limit: str):
@@ -256,13 +235,110 @@ def phase_kernels(cfg, graph, split, power_limit: str):
     return rows
 
 
-def phase_end_to_end(cfg, graph, split):
+def bsr_case(label, src, dst, n, x, power_k=0):
+    """``bsr_spmm`` on M = the sym-normalized adjacency of (src, dst) and X:
+    checked against its plain version (and, with ``power_k``, the K-step
+    chain against the plain chain), timed beside the plain version, the
+    edge-list route and one ``torch.sparse.mm`` of M in CSR form."""
+    import torch
+
+    from s3grl_tpu_torch.ops.spmm import normalized_adjacency_weights, spmm
+    from s3grl_tpu_torch.ops.spmm_kernel import (
+        blockify, bsr_spmm, bsr_spmm_reference, power_chain,
+    )
+
+    w = normalized_adjacency_weights(
+        torch.as_tensor(src, dtype=torch.int64), torch.as_tensor(dst, dtype=torch.int64), n
+    ).numpy()
+    adj = blockify(src, dst, w, n, device="cuda")
+    c = int(x.shape[1])
+
+    def check(got, want, what):
+        diff = float((got - want).abs().max())
+        ok = bool(((got - want).abs() <= BSR_TOL["atol"] + BSR_TOL["rtol"] * want.abs()).all())
+        if not ok:
+            raise AssertionError(
+                f"bsr_spmm disagrees with its plain version at {label} ({what}): max abs "
+                f"err {diff} (tolerance rtol {BSR_TOL['rtol']}, atol {BSR_TOL['atol']})"
+            )
+        return diff
+
+    max_abs = check(bsr_spmm(adj, x), bsr_spmm_reference(adj, x), "one product")
+    if power_k:
+        want = [x]
+        for _ in range(power_k):
+            want.append(bsr_spmm_reference(adj, want[-1]))
+        chain_err = check(power_chain(adj, x, power_k), torch.stack(want[1:]),
+                          f"K={power_k} chain")
+        max_abs = max(max_abs, chain_err)
+    torch.cuda.synchronize()
+
+    s_t = torch.as_tensor(src, dtype=torch.int64, device="cuda")
+    d_t = torch.as_tensor(dst, dtype=torch.int64, device="cuda")
+    w_t = torch.as_tensor(w, device="cuda")
+    with warnings.catch_warnings():  # torch's notes on sparse invariants and beta CSR
+        warnings.simplefilter("ignore", UserWarning)
+        m_csr = torch.sparse_coo_tensor(torch.stack([d_t, s_t]), w_t, (n, n))
+        m_csr = m_csr.coalesce().to_sparse_csr()
+    ms = cuda_ms(lambda: bsr_spmm(adj, x), reps=20)
+    plain_ms = cuda_ms(lambda: bsr_spmm_reference(adj, x), reps=3)
+    edge_ms = cuda_ms(lambda: spmm(s_t, d_t, w_t, x, n), reps=20)
+    library_ms = cuda_ms(lambda: torch.sparse.mm(m_csr, x), reps=20)
+
+    # The bound is the least the function Y = M X needs: the nonzeros (value
+    # and column id, CSR row pointers), X read and Y written once, and one
+    # multiply-add per nonzero and column. The dense-block layout's own
+    # figure (every block whole, 2*NB*128^2*C FLOP, the JAX cost estimate's)
+    # is printed beside it.
+    nb, bs = adj.num_blocks, int(adj.blocks.shape[1])
+    nnz = int(m_csr.values().numel())
+    n_bytes = 8 * nnz + 4 * (n + 1) + 8 * n * c
+    flops = 2.0 * nnz * c
+    bound_ms, by = bound_ms_of(n_bytes, flops)
+    dense_bytes = 4 * (nb * bs * bs + 2 * n * c + nb + adj.num_row_blocks + 1)
+    dense_flops = 2.0 * nb * bs * bs * c
+    dense_ms, dense_by = bound_ms_of(dense_bytes, dense_flops)
+    print(f"  bsr_spmm {label}: N={n} C={c} NB={nb} nnz={nnz} max_abs_err {max_abs:.3e} "
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms edge-list {edge_ms:.4f} ms "
+          f"torch.sparse.mm (CSR) {library_ms:.4f} ms bound {bound_ms:.4f} ms "
+          f"({by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP, 2*nnz*C) "
+          f"share of bound {bound_ms / ms:.4f}; dense-block layout's bound {dense_ms:.4f} ms "
+          f"({dense_by}: {dense_bytes / 1e6:.2f} MB, {dense_flops / 1e9:.3f} GFLOP)")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, edge_list_ms=edge_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
+                bound_ms_dense_blocks=dense_ms, shape=f"{label} N={n} C={c} NB={nb} nnz={nnz}")
+
+
+def phase_bsr_kernel(cfg, graph, power_limit: str):
+    """``bsr_spmm`` at the main path's shape (the SoP chain of the split
+    graph with its degree features: one product and the K-step chain) and
+    on a Cora-shaped random graph with random X, where the kernel is forced
+    (the selector would take the edge list there)."""
     import torch
 
     from s3grl_tpu_torch.data.features import init_features
+    from s3grl_tpu_torch.ops.spmm_kernel import should_use_bsr
+    from torch_port_helpers import cora_like_edges
+
+    print(f"bsr_spmm kernel phase: card {power_limit}")
+    g = init_features(graph, cfg.init_features)
+    src, dst = g.edge_index[0], g.edge_index[1]
+    x = torch.as_tensor(g.x, dtype=torch.float32, device="cuda")
+    if not should_use_bsr(src, dst, g.num_nodes, x.shape[1]):
+        raise AssertionError("the selector does not pick bsr_spmm on the main path")
+    main = bsr_case("main path (SoP chain)", src, dst, g.num_nodes, x, power_k=cfg.sign_k)
+    ei = cora_like_edges(SEED)
+    rng = np.random.default_rng(SEED)
+    xc = torch.as_tensor(rng.normal(size=(2708, 1433)).astype(np.float32), device="cuda")
+    print(f"  selector on the Cora shape: "
+          f"{'bsr' if should_use_bsr(ei[0], ei[1], 2708, 1433) else 'edge list'}")
+    cora = bsr_case("Cora-shaped random graph (forced)", ei[0], ei[1], 2708, xc)
+    return main, cora
+
+
+def phase_end_to_end(cfg, graph, split):
+    from s3grl_tpu_torch.data.features import init_features
     from s3grl_tpu_torch.operators.pos import measure_subgraph_sizes
-    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
-    from s3grl_tpu_torch.runner import run_sgrl_learning
     from s3grl_tpu_torch.sampling.extraction import DeviceGraph, pick_bucket
 
     dg = DeviceGraph.from_graph(init_features(graph, cfg.init_features), device="cuda")
@@ -283,30 +359,55 @@ def phase_end_to_end(cfg, graph, split):
           f"bucket histogram {dict(sorted(hist.items()))}")
     del dg
 
+    launches = {}
+    for sign_type, kernels in PATHS.items():
+        launches[sign_type] = run_path(cfg, graph, split, n_links, sign_type, kernels)
+    return launches, hist
+
+
+def run_path(cfg, graph, split, n_links, sign_type, kernels):
+    """One 5-epoch run of ``sign_type``, with every kernel's count set to 0
+    just before it and read just after; returns the counts."""
+    import dataclasses
+
+    import torch
+
+    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
+    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm
+    from s3grl_tpu_torch.runner import run_sgrl_learning
+
+    wrappers = {"pos_power_rows": pos_power_rows, "bsr_spmm": bsr_spmm}
+    cfg = dataclasses.replace(cfg, sign_type=sign_type,
+                              pool_operatorwise=sign_type != "PoS")
     torch.cuda.reset_peak_memory_stats()
-    pos_power_rows.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0
     prep, best, train_times, _, n_params = run_sgrl_learning(cfg, graph, split, device="cuda")
-    launches = pos_power_rows.launches
+    launches = {name: fn.launches for name, fn in wrappers.items()}
     total = sum(n_links.values())
     train_s = sum(train_times)
-    print(f"e2e: prep {prep:.3f} s, precompute {total / prep:.1f} links/s "
+    print(f"e2e {sign_type}: prep {prep:.3f} s, precompute {total / prep:.1f} links/s "
           f"({total} links), train {cfg.epochs * n_links['train'] / train_s:.1f} links/s "
           f"({cfg.epochs} epochs x {n_links['train']} links in {train_s:.3f} s), "
           f"precompute+train {(total + cfg.epochs * n_links['train']) / (prep + train_s):.1f} "
-          f"links/s, best test AUC {best:.4f}, params {n_params}, "
-          f"pos_power_rows launches {launches}, "
+          f"links/s, best test AUC {best:.4f}, params {n_params}, launches {launches}, "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    if launches == 0:
-        raise AssertionError("the main path never launched pos_power_rows")
+    for name in kernels:
+        if launches[name] == 0:
+            raise AssertionError(f"the {sign_type} path never launched {name}")
+    if "bsr_spmm" in kernels:
+        print(f"  bsr_spmm launches {launches['bsr_spmm']} "
+              f"(expected 3 splits x K = {3 * cfg.sign_k})")
     if not np.isfinite(best):
-        raise AssertionError(f"best test AUC is not finite: {best}")
-    if best < JAX_REFERENCE_AUC - AUC_SLACK:
+        raise AssertionError(f"{sign_type} best test AUC is not finite: {best}")
+    ref = JAX_REFERENCE_AUC[sign_type]
+    if best < ref - AUC_SLACK:
         raise AssertionError(
-            f"best test AUC {best:.4f} is more than {AUC_SLACK / 100} below the "
-            f"JAX package's {JAX_REFERENCE_AUC:.4f} on the same graph and config"
+            f"{sign_type} best test AUC {best:.4f} is more than {AUC_SLACK / 100} below "
+            f"the JAX package's {ref:.4f} on the same graph and config"
         )
-    print(f"AUC check: {best:.4f} vs JAX {JAX_REFERENCE_AUC:.4f} (slack {AUC_SLACK})")
-    return launches, hist
+    print(f"AUC check {sign_type}: {best:.4f} vs JAX {ref:.4f} (slack {AUC_SLACK})")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -317,7 +418,9 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
+    # The synthetic graphs come from the tests' helpers, imported by module
+    # name: a machine may hold a foreign ``tests`` package on its path.
+    sys.path[:0] = [here, os.path.join(here, "tests")]
     import s3grl_tpu_torch  # noqa: F401  (fails where the package is absent)
 
     results_dir = os.path.join(here, "build", "chip_smoke_results")
@@ -328,23 +431,39 @@ def main(argv=None) -> int:
     phase_build()
     graph, split = split_graph(cfg)
     rows = phase_kernels(cfg, graph, split, power_limit)
+    bsr_main, _ = phase_bsr_kernel(cfg, graph, power_limit)
     launches, hist = phase_end_to_end(cfg, graph, split)
 
-    # The kernel line reports the global-id shape of the bucket that took
-    # the most links on the main path.
+    # pos_power_rows reports the global-id shape of the bucket that took
+    # the most links on the PoS path; bsr_spmm the SoP chain's one product.
+    # "launches" is each kernel's count on its own path (PoS, SoP).
     main_s = max(hist, key=hist.get)
     label = next((k for k in rows if k.startswith(f"global S={main_s} R=2 ")),
                  next(k for k in rows if k.startswith("global S=512 ")))
     r = rows[label]
+    by_path = {name: {t: launches[t][name] for t in launches}
+               for name in ("pos_power_rows", "bsr_spmm")}
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(power_limit)
     print(json.dumps({"kernels": [{
         "name": "pos_power_rows", "route": "cuda",
         "source": "s3grl_tpu_torch/csrc/pos_power_rows.cu",
         "replaces": "s3grl_tpu/ops/pos_pallas.py:173",
-        "launches": launches, "max_abs_err": r["max_abs_err"],
+        "launches": launches["PoS"]["pos_power_rows"], "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None, "shape": label,
+        "launches_by_path": by_path["pos_power_rows"],
+    }, {
+        "name": "bsr_spmm", "route": "cuda",
+        "source": "s3grl_tpu_torch/csrc/bsr_spmm.cu",
+        "replaces": "s3grl_tpu/ops/spmm_pallas.py:206",
+        "launches": launches["SoP"]["bsr_spmm"], "max_abs_err": bsr_main["max_abs_err"],
+        "ms": bsr_main["ms"], "plain_ms": bsr_main["plain_ms"],
+        "bound_ms": bsr_main["bound_ms"], "bound_by": bsr_main["bound_by"],
+        "library_ms": bsr_main["library_ms"], "shape": bsr_main["shape"],
+        "launches_by_path": by_path["bsr_spmm"],
+        "edge_list_ms": bsr_main["edge_list_ms"],
+        "bound_ms_dense_blocks": bsr_main["bound_ms_dense_blocks"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

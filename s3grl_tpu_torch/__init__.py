@@ -1,9 +1,10 @@
 """s3grl_tpu_torch: the PyTorch and CUDA port of ``s3grl_tpu``.
 
-S3GRL link prediction (enclosing-subgraph extraction, PoS diffusion
-operators, the SIGNNet scorer) on an NVIDIA GPU. The PoS operator kernel is
-written by hand in CUDA C++ (``csrc/pos_power_rows.cu``) and built at first
-use; everything else is plain torch. The package imports neither JAX nor
+S3GRL link prediction (enclosing-subgraph extraction, PoS, SoP and hybrid
+diffusion operators, the SIGNNet scorer) on an NVIDIA GPU. The PoS operator
+kernel (``csrc/pos_power_rows.cu``) and the block-sparse SpMM of the SoP
+chain (``csrc/bsr_spmm.cu``) are written by hand in CUDA C++ and built at
+first use; everything else is plain torch. The package imports neither JAX nor
 ``s3grl_tpu``: the JAX package is the reference the tests hold it to.
 """
 

@@ -91,3 +91,24 @@ class OperatorDataset:
     def load(cls, path: str) -> "OperatorDataset":
         with np.load(path) as z:
             return cls(xs=z["xs"], row_mask=z["row_mask"], y=z["y"])
+
+    def hybrid_with(self, sop: "OperatorDataset") -> "OperatorDataset":
+        """Hybrid PoS+SoP: append SoP operators x2..xK as x{K+1}..x{2K-1}
+        (reference: utils.py:476-477, data[f'x{k}'] = sop x{k - K + 1}),
+        zero-padding the feature width to the larger of the two. Requires
+        equal R (vanilla PoS, R=2). The join is made on this (PoS) dataset's
+        device, in the wider of the two dtypes (the PoS half may be bf16)."""
+        if self.num_links != sop.num_links:
+            raise ValueError(f"{self.num_links} PoS links, {sop.num_links} SoP links")
+        if self.num_rows != sop.num_rows:
+            raise ValueError("hybrid requires vanilla PoS (R=2)")
+        a = torch.as_tensor(self.xs)
+        b = torch.as_tensor(sop.xs)[:, 2:]
+        dtype = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dtype), b.to(device=a.device, dtype=dtype)
+        f = max(a.shape[-1], b.shape[-1])
+        a = torch.nn.functional.pad(a, (0, f - a.shape[-1]))
+        b = torch.nn.functional.pad(b, (0, f - b.shape[-1]))
+        return OperatorDataset(
+            xs=torch.cat([a, b], dim=1), row_mask=self.row_mask, y=self.y
+        )

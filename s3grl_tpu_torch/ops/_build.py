@@ -1,4 +1,5 @@
-"""Build the package's CUDA kernels at first use and load them with ctypes.
+"""Build the package's CUDA kernels at first use and load them with ctypes;
+check the tensors a wrapper hands to a kernel's C entry.
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` into its own shared library with
 a plain C interface, under ``build/kernels/`` at the repository root. The
@@ -100,6 +101,20 @@ def build_all() -> dict[str, BuiltKernel]:
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return built
+
+
+def check_arg(t, name: str, dtype, shape, device) -> None:
+    """Raise unless tensor ``t`` has the device, dtype and shape a kernel's
+    C entry takes and is contiguous (TypeError for the dtype, ValueError
+    otherwise)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 @functools.lru_cache(maxsize=None)

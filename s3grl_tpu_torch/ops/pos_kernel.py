@@ -104,17 +104,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def pos_power_rows(
     sel_idx: torch.Tensor,  # [B, R] int32
     nbr: torch.Tensor,  # [B, S, D] int32
@@ -143,12 +132,12 @@ def pos_power_rows(
     B, S, D = nbr.shape
     F = subg_x.shape[2]
     R = sel_idx.shape[1]
-    _check(sel_idx, "sel_idx", torch.int32, (B, R), dev)
-    _check(nbr, "nbr", torch.int32, (B, S, D), dev)
-    _check(w, "w", torch.float32, (B, S, D), dev)
-    _check(subg_x, "subg_x", torch.float32, (B, S, F), dev)
+    _build.check_arg(sel_idx, "sel_idx", torch.int32, (B, R), dev)
+    _build.check_arg(nbr, "nbr", torch.int32, (B, S, D), dev)
+    _build.check_arg(w, "w", torch.float32, (B, S, D), dev)
+    _build.check_arg(subg_x, "subg_x", torch.float32, (B, S, F), dev)
     if row_ids is not None:
-        _check(row_ids, "row_ids", torch.int32, (B, S), dev)
+        _build.check_arg(row_ids, "row_ids", torch.int32, (B, S), dev)
     if min(S, R, F) < 1 or D < 1:
         raise ValueError(f"empty shape: S={S}, D={D}, F={F}, R={R}")
     per_block = (S * D, S * F, (sign_k + 1) * R * F, sign_k * R * S)

@@ -1,16 +1,18 @@
 """End-to-end run orchestration on the GPU.
 
-Port of the SIGN / PoS path of ``s3grl_tpu/runner.py``, the equivalent of
-the reference's ``run_sgrl_learning`` (sgrl_link_pred.py:791-1466):
-dataset load -> seeded edge split -> feature init -> PoS operator
-precompute -> SIGNNet training -> highest-valid test metric.
+Port of the SIGN path of ``s3grl_tpu/runner.py`` (PoS, SoP and hybrid
+operators, ``optimize_sign``), the equivalent of the reference's
+``run_sgrl_learning`` (sgrl_link_pred.py:791-1466): dataset load -> seeded
+edge split -> feature init -> operator precompute -> SIGNNet training ->
+highest-valid test metric.
 
 Returns the reference's result tuple shape:
 (total_prep_time, best_test_score, train_times, inference_times, total_params).
 
 Run from the command line with
 ``python -m s3grl_tpu_torch.runner --dataset USAir --sign_type PoS
---optimize_sign --init_features degree --epochs 5 [--device cuda]``.
+--optimize_sign --init_features degree --epochs 5 [--device cuda]``; SoP and
+hybrid also take ``--pool_operatorwise``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from s3grl_tpu_torch.data.io import dataset_source_paths, load_dataset
 from s3grl_tpu_torch.data.split import EdgeSplit, do_edge_split, get_pos_neg_edges
 from s3grl_tpu_torch.operators.common import OperatorDataset
 from s3grl_tpu_torch.operators.pos import precompute_pos
+from s3grl_tpu_torch.operators.sop import precompute_sop
 from s3grl_tpu_torch.sampling.extraction import DeviceGraph
 from s3grl_tpu_torch.train.logger import Logger
 from s3grl_tpu_torch.train.loop import fit_signnet
@@ -99,16 +102,15 @@ def precompute_split(
     device="cuda",
 ) -> OperatorDataset:
     """Dispatch the operator flow for one split (utils.py:446-496 routing)."""
-    if cfg.sign_type != "PoS":
-        raise NotImplementedError(
-            f"sign_type {cfg.sign_type!r} is not ported yet: SoP and hybrid "
-            "wait for ROADMAP module item 7"
-        )
+    if cfg.sign_type not in ("PoS", "SoP", "hybrid"):
+        raise NotImplementedError(f"sign_type {cfg.sign_type!r}")
     if not cfg.optimize_sign:
         raise NotImplementedError(
             "optimize_sign=False (the full-row flow) is not ported yet: it "
             "waits for ROADMAP module item 8"
         )
+    if cfg.sign_type == "SoP":
+        return precompute_sop(dg, links, y, sign_k=cfg.sign_k, device=device)
     if cfg.m or cfg.M:
         raise NotImplementedError(
             "ScaLed random-walk extraction (m, M) is not ported yet: it "
@@ -124,6 +126,13 @@ def precompute_split(
         max_subgraph_nodes=cfg.max_subgraph_nodes,
         device=device,
     )
+    if cfg.sign_type == "hybrid":
+        pos_ds = precompute_pos(dg, links, y, **kw)
+        if cfg.sign_k == 1:
+            return pos_ds
+        return pos_ds.hybrid_with(
+            precompute_sop(dg, links, y, sign_k=cfg.sign_k, device=device)
+        )
     if cfg.k_heuristic:
         kw.update(
             k_heuristic=cfg.k_heuristic,
@@ -235,6 +244,8 @@ def run_sgrl_learning(
     total_prep_time = time.perf_counter() - t_prep0
 
     num_layers = cfg.sign_k
+    if cfg.sign_type == "hybrid":
+        num_layers = cfg.sign_k * 2 - 1
     eval_metric = (
         cfg.eval_metric
         if cfg.eval_metric not in ("auc", "")

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the torch port's main path spends its time on a CUDA card.
 
-    python3 scripts/profile_torch_main_path.py [--seed 1] [--epochs 1]
+    python3 scripts/profile_torch_main_path.py [--seed 1] [--epochs 1] \
+        [--sign_type PoS|SoP|hybrid]
 
-Runs the two halves of ``chip_smoke.py``'s end-to-end run, the PoS
-precompute of all three splits and SIGNNet training, once to warm up and
+Runs the two halves of one of ``chip_smoke.py``'s end-to-end runs, the
+operator precompute of all three splits (PoS by default; SoP and hybrid
+with ``pool_operatorwise``) and SIGNNet training, once to warm up and
 once under ``torch.profiler``. For each half it prints the host wall time
 (ending at ``torch.cuda.synchronize()``), the device's busy time (the union
 of all kernel, copy and set intervals), its idle share, the device time by
@@ -14,13 +16,15 @@ missing.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
 from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+# chip_smoke.py's graph comes from the tests' helpers, imported by module name.
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 
 def device_time(prof) -> tuple[float, dict[str, float], int]:
@@ -81,10 +85,16 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--epochs", type=int, default=1)
+    ap.add_argument("--sign_type", choices=("PoS", "SoP", "hybrid"), default="PoS")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     _build.build_all()
-    cfg = bench_config(args.seed, args.epochs, os.path.join(ROOT, "build", "profile_results"))
+    cfg = dataclasses.replace(
+        bench_config(args.seed, args.epochs, os.path.join(ROOT, "build", "profile_results")),
+        sign_type=args.sign_type, pool_operatorwise=args.sign_type != "PoS",
+    )
+    # The runner's operator count: hybrid appends K - 1 SoP operators.
+    num_layers = 2 * cfg.sign_k - 1 if cfg.sign_type == "hybrid" else cfg.sign_k
     graph, split = split_graph(cfg)
     graph = init_features(graph, cfg.init_features)
     dg = DeviceGraph.from_graph(graph, device=dev)
@@ -100,15 +110,16 @@ def main(argv=None) -> None:
     def train():
         fit_signnet(
             datasets["train"], datasets["valid"], datasets["test"],
-            sign_k=cfg.sign_k, hidden_channels=cfg.hidden_channels,
-            batch_size=cfg.batch_size, lr=cfg.lr, epochs=cfg.epochs,
-            dropout=cfg.dropout, seed=cfg.seed, device=dev,
+            sign_k=num_layers, hidden_channels=cfg.hidden_channels,
+            num_layers=num_layers, batch_size=cfg.batch_size, lr=cfg.lr,
+            epochs=cfg.epochs, dropout=cfg.dropout,
+            pool_operatorwise=cfg.pool_operatorwise, seed=cfg.seed, device=dev,
         )
 
     n = sum(len(y) for _, y in links.values())
-    print(f"{torch.cuda.get_device_name(0)}; {n} links, "
+    print(f"{torch.cuda.get_device_name(0)}; {cfg.sign_type}; {n} links, "
           f"{len(links['train'][1])} train links x {cfg.epochs} epoch(s)")
-    profiled("precompute (3 splits)", precompute)
+    profiled(f"{cfg.sign_type} precompute (3 splits)", precompute)
     profiled(f"train ({cfg.epochs} epoch(s) + eval)", train)
     print(f"train links/step {cfg.batch_size}, steps/epoch "
           f"{int(np.ceil(len(links['train'][1]) / cfg.batch_size))}")

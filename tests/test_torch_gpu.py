@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain torch version, on a card.
+"""The port's CUDA kernels against their plain torch versions, on a card.
 
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one. Imports no JAX, so it also runs where JAX is not
@@ -11,9 +11,16 @@ import pytest
 import torch
 
 from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows, pos_power_rows_reference
+from s3grl_tpu_torch.ops.spmm_kernel import (
+    BlockedAdjacency,
+    blockify,
+    bsr_spmm,
+    bsr_spmm_reference,
+)
 from torch_port_helpers import kernel_inputs
 
 TOL = dict(rtol=2e-3, atol=2e-4)
+BSR_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_pallas_spmm.py's bar
 
 SHAPES = [
     dict(B=5, S=128, D=24, F=300, R=10),
@@ -56,3 +63,61 @@ def test_cuda_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         pos_power_rows(t[0], t[1], t[2], t[3].transpose(1, 2).contiguous().transpose(1, 2),
                        sign_k=1)
+
+
+# (n, e, c): tests/test_pallas_spmm.py's shapes, then the main path's width
+# (C = 1,025) at N not a multiple of 128, with one row block left empty.
+BSR_SHAPES = [(50, 200, 7), (300, 2500, 64), (513, 4000, 129), (332, 3600, 1025)]
+
+
+def _bsr_inputs(seed, n, e, c, empty_row_block=False):
+    """A non-symmetric M with weights of both signs, as numpy."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    if empty_row_block:
+        dst = np.where((dst >= 128) & (dst < 256), dst % 128, dst).astype(np.int32)
+    w = rng.normal(size=e).astype(np.float32)
+    x = rng.normal(size=(n, c)).astype(np.float32)
+    return src, dst, w, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,e,c", BSR_SHAPES, ids=lambda v: str(v))
+def test_bsr_kernel_matches_plain_version(n, e, c):
+    dev = _cuda()
+    src, dst, w, x = _bsr_inputs(n, n, e, c, empty_row_block=n > 256)
+    adj = blockify(src, dst, w, n, device=dev)
+    xt = torch.as_tensor(x, device=dev)
+    before = bsr_spmm.launches
+    got = bsr_spmm(adj, xt)
+    torch.cuda.synchronize()
+    assert bsr_spmm.launches == before + 1
+    want = bsr_spmm_reference(adj, xt)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **BSR_TOL)
+    dense = np.zeros((n, n), np.float32)
+    np.add.at(dense, (dst, src), w)
+    np.testing.assert_allclose(got.cpu().numpy(), dense @ x, **BSR_TOL)
+    if n > 256:
+        assert bool((got[128:256] == 0).all())
+    # A fixed summation order: the same call gives the same bits.
+    assert torch.equal(bsr_spmm(adj, xt), got)
+
+
+@pytest.mark.gpu
+def test_bsr_kernel_rejects_what_it_does_not_take():
+    dev = _cuda()
+    src, dst, w, x = _bsr_inputs(1, 200, 800, 9)
+    adj = blockify(src, dst, w, 200, device=dev)
+    xt = torch.as_tensor(x, device=dev)
+    before = bsr_spmm.launches
+    wide = BlockedAdjacency(adj.blocks, adj.block_rows.long(), adj.block_cols,
+                            adj.row_ptr, adj.num_nodes, adj.num_row_blocks)
+    with pytest.raises(TypeError):
+        bsr_spmm(wide, xt)
+    with pytest.raises(ValueError):
+        bsr_spmm(adj, torch.as_tensor(x.T.copy(), device=dev).T)
+    on_cpu = blockify(src, dst, w, 200, device="cpu")
+    with pytest.raises(ValueError):
+        bsr_spmm(on_cpu, xt)
+    assert bsr_spmm.launches == before

@@ -12,6 +12,7 @@ import s3grl_tpu_torch
 from s3grl_tpu_torch.config import RunConfig
 from s3grl_tpu_torch.data.graph import Graph
 from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
+from s3grl_tpu_torch.ops.spmm_kernel import blockify, bsr_spmm
 from tests.torch_port_helpers import random_edges
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,6 +33,7 @@ def _port_modules():
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = _port_modules()
     assert "s3grl_tpu_torch.runner" in mods and "s3grl_tpu_torch.ops.pos_kernel" in mods
+    assert "s3grl_tpu_torch.operators.sop" in mods and "s3grl_tpu_torch.ops.spmm_kernel" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -56,6 +58,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     _no_cuda(monkeypatch)
     from s3grl_tpu_torch.operators.common import OperatorDataset
     from s3grl_tpu_torch.operators.pos import precompute_pos
+    from s3grl_tpu_torch.operators.sop import precompute_sop
     from s3grl_tpu_torch.runner import main, run_sgrl_learning
     from s3grl_tpu_torch.sampling.extraction import DeviceGraph
     from s3grl_tpu_torch.train.loop import fit_signnet
@@ -72,6 +75,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: DeviceGraph.from_graph(g),
         lambda: precompute_pos(dg, np.zeros((2, 2), np.int32), np.zeros(2),
                                num_hops=1, sign_k=1),
+        lambda: precompute_sop(dg, np.zeros((2, 2), np.int32), np.zeros(2), sign_k=1),
+        lambda: blockify(np.zeros(1), np.zeros(1), np.ones(1), 4),
+        lambda: run_sgrl_learning(RunConfig(sign_type="SoP", optimize_sign=True,
+                                            pool_operatorwise=True,
+                                            init_features="degree"), g),
         lambda: fit_signnet(ds, ds, ds, sign_k=1, epochs=1),
         lambda: main(["--sign_type", "PoS", "--optimize_sign", "--init_features", "degree"]),
     ]
@@ -88,3 +96,11 @@ def test_kernel_wrapper_cpu_route_and_launch_count():
     assert out.shape == (1, 3, 2, 5)
     assert pos_power_rows.launches == 0
     assert s3grl_tpu_torch.RunConfig is RunConfig
+
+
+def test_bsr_wrapper_cpu_route_leaves_the_launch_count():
+    assert bsr_spmm.launches == 0
+    adj = blockify(np.array([0, 1]), np.array([1, 0]), np.ones(2), 3, device="cpu")
+    y = bsr_spmm(adj, torch.ones((3, 4)))
+    assert y.shape == (3, 4) and y.sum() == 8
+    assert bsr_spmm.launches == 0

@@ -16,19 +16,21 @@ from s3grl_tpu.train.loop import bce_with_logits as j_bce
 from s3grl_tpu.train.loop import make_optimizer as j_make_optimizer
 from s3grl_tpu_torch.models.convert import signnet_state_dict_from_flax
 from s3grl_tpu_torch.models.signnet import SIGNNet
+from s3grl_tpu_torch.operators.common import OperatorDataset
 from s3grl_tpu_torch.train.loop import bce_with_logits, make_optimizer
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 POOLS = [(0, ""), (2, "mean"), (2, "sum"), (2, "concat")]
 
 
-def _setup(k_heuristic, k_pool_strategy, B=12, R=5, F_in=18, hidden=16, seed=0):
+def _setup(k_heuristic, k_pool_strategy, B=12, R=5, F_in=18, hidden=16, seed=0,
+           num_layers=2):
     rng = np.random.default_rng(seed)
     xs = rng.normal(size=(B, R, F_in)).astype(np.float32)
     mask = np.ones((B, R), dtype=bool)
     mask[:, 2:] = rng.random((B, R - 2)) < 0.6
     y = rng.integers(0, 2, B).astype(np.float32)
-    jm = JSIGNNet(hidden_channels=hidden, num_layers=2, dropout=0.0,
+    jm = JSIGNNet(hidden_channels=hidden, num_layers=num_layers, dropout=0.0,
                   k_heuristic=k_heuristic, k_pool_strategy=k_pool_strategy)
     v = jm.init({"params": jax.random.PRNGKey(seed), "dropout": jax.random.PRNGKey(1)},
                 jnp.asarray(xs), jnp.asarray(mask), train=True)
@@ -37,7 +39,7 @@ def _setup(k_heuristic, k_pool_strategy, B=12, R=5, F_in=18, hidden=16, seed=0):
     for st in v["batch_stats"].values():
         st["MaskedBatchNorm_0"]["mean"] = rng.normal(size=hidden).astype(np.float32)
         st["MaskedBatchNorm_0"]["var"] = rng.uniform(0.5, 2, hidden).astype(np.float32)
-    tm = SIGNNet(F_in, hidden, 2, dropout=0.0, k_heuristic=k_heuristic,
+    tm = SIGNNet(F_in, hidden, num_layers, dropout=0.0, k_heuristic=k_heuristic,
                  k_pool_strategy=k_pool_strategy)
     tm.load_state_dict(signnet_state_dict_from_flax(v))
     return jm, v, tm, xs, mask, y
@@ -45,7 +47,20 @@ def _setup(k_heuristic, k_pool_strategy, B=12, R=5, F_in=18, hidden=16, seed=0):
 
 @pytest.mark.parametrize("k_heuristic,k_pool_strategy", POOLS)
 def test_signnet_forward_matches_flax(k_heuristic, k_pool_strategy):
-    jm, v, tm, xs, mask, _ = _setup(k_heuristic, k_pool_strategy)
+    _forward_matches_flax(*_setup(k_heuristic, k_pool_strategy))
+
+
+@pytest.mark.parametrize("sign_k", [2, 3])
+def test_signnet_forward_matches_flax_at_hybrid_width(sign_k):
+    """Hybrid runs num_layers = 2K - 1 over 2K operators of F' features."""
+    num_layers = 2 * sign_k - 1
+    ds = OperatorDataset(torch.zeros((12, 2 * sign_k, 2, 7)), torch.ones((12, 2)), None)
+    assert ds.model_inputs(num_layers).shape == (12, 2, 7 * (num_layers + 1))
+    _forward_matches_flax(*_setup(0, "", R=2, F_in=7 * (num_layers + 1),
+                                  num_layers=num_layers))
+
+
+def _forward_matches_flax(jm, v, tm, xs, mask, _):
     j_eval = jm.apply(v, jnp.asarray(xs), jnp.asarray(mask), train=False)
     j_train, _ = jm.apply(v, jnp.asarray(xs), jnp.asarray(mask), train=True,
                           mutable=["batch_stats"])

@@ -27,8 +27,8 @@ def usair_like_edges(seed: int, n: int = 332, p_triad: float = 0.9,
     ``p_triad``. At seed 1: 2,131 edges, max degree 108, clustering 0.139
     (a uniform random graph of that density has 0.039).
 
-    Returns a symmetrized [2, 2E] int32 edge index. ``chip_smoke.py`` holds
-    a copy of this generator.
+    Returns a symmetrized [2, 2E] int32 edge index. ``chip_smoke.py`` and
+    ``scripts/jax_synthetic_auc.py`` take their graph from here.
     """
     rng = np.random.default_rng(seed)
     m0 = 7
@@ -63,6 +63,20 @@ def usair_like_edges(seed: int, n: int = 332, p_triad: float = 0.9,
     src = np.array([u for u in range(n) for w in sorted(adj[u])], dtype=np.int32)
     dst = np.array([w for u in range(n) for w in sorted(adj[u])], dtype=np.int32)
     return np.stack([src, dst])
+
+
+def cora_like_edges(seed: int, n: int = 2708, n_undirected: int = 5278):
+    """A uniform random graph of Planetoid Cora's size: ``n_undirected``
+    distinct node pairs without self loops, drawn from a numpy seed.
+    Returns a symmetrized [2, 10,556] int32 edge index."""
+    rng = np.random.default_rng(seed)
+    pairs = set()
+    while len(pairs) < n_undirected:
+        u, v = (int(a) for a in rng.integers(0, n, 2))
+        if u != v:
+            pairs.add((min(u, v), max(u, v)))
+    und = np.array(sorted(pairs), dtype=np.int32).T
+    return to_undirected(und)
 
 
 def kernel_inputs(seed, B, S, D, F, R, mode, symmetric=False):
