@@ -12,15 +12,21 @@ non-zero without the final line:
    kernel's registers, shared memory and spills from ``-Xptxas -v``;
 3. kernels: each kernel of the paths against its plain torch version on
    the card, at the main path's shapes and on the main path's data, with
-   its time, the plain version's time and the least time the card could
-   take; ``bsr_spmm`` also on a Cora-shaped random graph, with the
-   edge-list route's time and one ``torch.sparse.mm`` as a yardstick;
+   its time by CUDA events, the plain version's time and the least time
+   the card could take; for ``pos_power_rows`` also its selector phase
+   against its plain version and alone (and at K = 0: the table pass), and
+   the resolved neighbor entries; ``bsr_spmm`` also on a Cora-shaped random
+   graph, with the edge-list route's time and one ``torch.sparse.mm`` as a
+   yardstick;
 4. end to end: ``run_sgrl_learning`` on a synthetic USAir-shaped graph
    with the bench.py config (USAir, sign_k 3, 2 hops, degree features,
    hidden 256, batch 32, lr 1e-4), 5 epochs, seed 1, once per sign type
    (PoS; SoP and hybrid with ``pool_operatorwise``); each kernel's launch
    count in each run, and its best test AUC against the JAX package's on
-   the same graph and config.
+   the same graph and config;
+5. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
+   by ``torch.profiler``, on inputs built again. It comes last, so that no
+   profiler session has run in the process while the paths are timed.
 
 Imports nothing of JAX or the JAX package. Exits 2 when CUDA is missing.
 """
@@ -102,6 +108,33 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms_by_kernel(fn, reps: int) -> dict[str, float]:
+    """Device milliseconds per call of each kernel (by short name) that
+    ``fn`` launches, from ``torch.profiler`` over ``reps`` calls after a
+    warm one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            name = re.sub(r"^(void )?(\(anonymous namespace\)::)?", "", e.name)
+            name = re.split(r"[<(]", name)[0][:60]
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return by_name
+
+
+def fmt_device(by_name: dict[str, float]) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1]))
+
+
 def phase_environment() -> str:
     import torch
 
@@ -180,11 +213,12 @@ def bound_ms_of(n_bytes: float, flops: float) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bound_of(kw) -> tuple[float, str, float, float]:
-    """(bound_ms, bound_by, bytes, flops) for one call: each input read and
-    each output written once; operations as this data needs them (one
-    multiply-add per resolved neighbor entry and selected row per step, one
-    per (k >= 1, row, node, feature) for the output)."""
+def bound_of(kw) -> tuple[float, str, float, float, np.ndarray]:
+    """(bound_ms, bound_by, bytes, flops, resolved entries per subgraph) for
+    one call: each input read and each output written once; operations as
+    this data needs them (one multiply-add per resolved neighbor entry and
+    selected row per step, one per (k >= 1, row, node, feature) for the
+    output)."""
     import torch
 
     from s3grl_tpu_torch.ops.pos_kernel import _resolve_slots
@@ -195,15 +229,19 @@ def bound_of(kw) -> tuple[float, str, float, float]:
     n_bytes = 4 * (2 * B * S * D + B * S * F + B * (K + 1) * R * F + B * R
                    + (B * S if kw["row_ids"] is not None else 0))
     _, found = _resolve_slots(nbr, kw["row_ids"], S)
-    nnz = int((found & (w.reshape(B, -1) != 0)).sum())
-    flops = 2.0 * (K * R * nnz + K * R * B * S * F)
-    return (*bound_ms_of(n_bytes, flops), n_bytes, flops)
+    per_subgraph = (found & (w.reshape(B, -1) != 0)).sum(dim=1).cpu().numpy()
+    flops = 2.0 * (K * R * int(per_subgraph.sum()) + K * R * B * S * F)
+    return (*bound_ms_of(n_bytes, flops), n_bytes, flops, per_subgraph)
 
 
 def phase_kernels(cfg, graph, split, power_limit: str):
     import torch
 
-    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows, pos_power_rows_reference
+    from s3grl_tpu_torch.ops import pos_kernel
+    from s3grl_tpu_torch.ops.pos_kernel import (
+        pos_power_rows, pos_power_rows_reference, pos_selector_rows,
+        pos_selector_rows_reference,
+    )
 
     cases, D, F = kernel_cases(cfg, graph, split)
     print(f"kernel phase: D={D} F={F + 1} (features + indicator) K={cfg.sign_k}; "
@@ -218,21 +256,64 @@ def phase_kernels(cfg, graph, split, power_limit: str):
         big = want.abs() > TOL["atol"]
         max_rel = float((diff[big] / want.abs()[big]).max()) if bool(big.any()) else 0.0
         ok = bool((diff <= TOL["atol"] + TOL["rtol"] * want.abs()).all())
-        ms = cuda_ms(lambda: pos_power_rows(**kw), reps=20)
-        plain_ms = cuda_ms(lambda: pos_power_rows_reference(**kw), reps=3)
-        bound_ms, by, n_bytes, flops = bound_of(kw)
-        rows[label] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=by)
-        print(f"  {label}: max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
-              f"({by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP) "
-              f"share of bound {bound_ms / ms:.3f}")
         if not ok:
             raise AssertionError(
                 f"pos_power_rows disagrees with its plain version at {label}: "
                 f"max abs err {max_abs} (tolerance rtol {TOL['rtol']}, atol {TOL['atol']})"
             )
+        # Phase 1 alone: the selector rows H against their plain version.
+        sel_kw = {k: kw[k] for k in ("sel_idx", "nbr", "w", "sign_k", "row_ids")}
+        h_err = float((pos_selector_rows(**sel_kw)
+                       - pos_selector_rows_reference(**sel_kw)).abs().max())
+        if h_err > TOL["atol"]:
+            raise AssertionError(f"pos_selector_rows disagrees with its plain version at "
+                                 f"{label}: max abs err {h_err} (atol {TOL['atol']})")
+        ms = cuda_ms(lambda: pos_power_rows(**kw), reps=20)
+        B, S, Dk = kw["nbr"].shape
+        lib = pos_kernel._lib()
+        # The selector phase alone, and at K = 0: its one pass over the table
+        # (with the hash build and the scaling) without the K steps.
+        phase1_ms, table_ms = (cuda_ms(lambda: pos_kernel._selector_rows_cuda(
+            lib, kw["sel_idx"], kw["nbr"], kw["w"], kw["row_ids"], k, B, S, Dk,
+            kw["sel_idx"].shape[1]), reps=20) for k in (kw["sign_k"], 0))
+        plain_ms = cuda_ms(lambda: pos_power_rows_reference(**kw), reps=3)
+        bound_ms, by, n_bytes, flops, nnz = bound_of(kw)
+        cap = lib.s3grl_pos_list_cap(S, Dk)
+        rows[label] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=by, phase1_ms=phase1_ms,
+                           resolved_entries=int(nnz.sum()))
+        print(f"  {label}: max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} "
+              f"(selector rows {h_err:.3e}) kernel {ms:.4f} ms (selector phase "
+              f"{phase1_ms:.4f} ms, of it the table pass {table_ms:.4f} ms) "
+              f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
+              f"({by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP) "
+              f"share of bound {bound_ms / ms:.3f}; resolved entries {int(nnz.sum())} "
+              f"(per subgraph mean {nnz.mean():.1f}, max {int(nnz.max())}; "
+              f"{int((nnz > cap).sum())} of {B} over the {cap}-entry shared-memory list)")
     return rows
+
+
+def bsr_inputs(src, dst, n):
+    """M = the sym-normalized adjacency of (src, dst) on the card: its
+    ``blockify`` layout, its edge list (src, dst, w) and one torch CSR
+    tensor of it."""
+    import torch
+
+    from s3grl_tpu_torch.ops.spmm import normalized_adjacency_weights
+    from s3grl_tpu_torch.ops.spmm_kernel import blockify
+
+    w = normalized_adjacency_weights(
+        torch.as_tensor(src, dtype=torch.int64), torch.as_tensor(dst, dtype=torch.int64), n
+    ).numpy()
+    adj = blockify(src, dst, w, n, device="cuda")
+    s_t = torch.as_tensor(src, dtype=torch.int64, device="cuda")
+    d_t = torch.as_tensor(dst, dtype=torch.int64, device="cuda")
+    w_t = torch.as_tensor(w, device="cuda")
+    with warnings.catch_warnings():  # torch's notes on sparse invariants and beta CSR
+        warnings.simplefilter("ignore", UserWarning)
+        m_csr = torch.sparse_coo_tensor(torch.stack([d_t, s_t]), w_t, (n, n))
+        m_csr = m_csr.coalesce().to_sparse_csr()
+    return adj, (s_t, d_t, w_t), m_csr
 
 
 def bsr_case(label, src, dst, n, x, power_k=0):
@@ -242,15 +323,10 @@ def bsr_case(label, src, dst, n, x, power_k=0):
     edge-list route and one ``torch.sparse.mm`` of M in CSR form."""
     import torch
 
-    from s3grl_tpu_torch.ops.spmm import normalized_adjacency_weights, spmm
-    from s3grl_tpu_torch.ops.spmm_kernel import (
-        blockify, bsr_spmm, bsr_spmm_reference, power_chain,
-    )
+    from s3grl_tpu_torch.ops.spmm import spmm
+    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm, bsr_spmm_reference, power_chain
 
-    w = normalized_adjacency_weights(
-        torch.as_tensor(src, dtype=torch.int64), torch.as_tensor(dst, dtype=torch.int64), n
-    ).numpy()
-    adj = blockify(src, dst, w, n, device="cuda")
+    adj, (s_t, d_t, w_t), m_csr = bsr_inputs(src, dst, n)
     c = int(x.shape[1])
 
     def check(got, want, what):
@@ -273,13 +349,6 @@ def bsr_case(label, src, dst, n, x, power_k=0):
         max_abs = max(max_abs, chain_err)
     torch.cuda.synchronize()
 
-    s_t = torch.as_tensor(src, dtype=torch.int64, device="cuda")
-    d_t = torch.as_tensor(dst, dtype=torch.int64, device="cuda")
-    w_t = torch.as_tensor(w, device="cuda")
-    with warnings.catch_warnings():  # torch's notes on sparse invariants and beta CSR
-        warnings.simplefilter("ignore", UserWarning)
-        m_csr = torch.sparse_coo_tensor(torch.stack([d_t, s_t]), w_t, (n, n))
-        m_csr = m_csr.coalesce().to_sparse_csr()
     ms = cuda_ms(lambda: bsr_spmm(adj, x), reps=20)
     plain_ms = cuda_ms(lambda: bsr_spmm_reference(adj, x), reps=3)
     edge_ms = cuda_ms(lambda: spmm(s_t, d_t, w_t, x, n), reps=20)
@@ -291,7 +360,7 @@ def bsr_case(label, src, dst, n, x, power_k=0):
     # figure (every block whole, 2*NB*128^2*C FLOP, the JAX cost estimate's)
     # is printed beside it.
     nb, bs = adj.num_blocks, int(adj.blocks.shape[1])
-    nnz = int(m_csr.values().numel())
+    nnz = int(adj.csr_vals.numel())
     n_bytes = 8 * nnz + 4 * (n + 1) + 8 * n * c
     flops = 2.0 * nnz * c
     bound_ms, by = bound_ms_of(n_bytes, flops)
@@ -309,31 +378,67 @@ def bsr_case(label, src, dst, n, x, power_k=0):
                 bound_ms_dense_blocks=dense_ms, shape=f"{label} N={n} C={c} NB={nb} nnz={nnz}")
 
 
-def phase_bsr_kernel(cfg, graph, power_limit: str):
-    """``bsr_spmm`` at the main path's shape (the SoP chain of the split
-    graph with its degree features: one product and the K-step chain) and
-    on a Cora-shaped random graph with random X, where the kernel is forced
-    (the selector would take the edge list there)."""
+def bsr_shapes(cfg, graph):
+    """(label, src, dst, n, x, power_k) of ``bsr_spmm``'s two shapes: the
+    main path's (the SoP chain of the split graph with its degree features:
+    one product and the K-step chain) and a Cora-shaped random graph with
+    random X, where the kernel is forced (the selector takes the edge list
+    there)."""
     import torch
 
     from s3grl_tpu_torch.data.features import init_features
-    from s3grl_tpu_torch.ops.spmm_kernel import should_use_bsr
     from torch_port_helpers import cora_like_edges
 
-    print(f"bsr_spmm kernel phase: card {power_limit}")
     g = init_features(graph, cfg.init_features)
-    src, dst = g.edge_index[0], g.edge_index[1]
     x = torch.as_tensor(g.x, dtype=torch.float32, device="cuda")
-    if not should_use_bsr(src, dst, g.num_nodes, x.shape[1]):
-        raise AssertionError("the selector does not pick bsr_spmm on the main path")
-    main = bsr_case("main path (SoP chain)", src, dst, g.num_nodes, x, power_k=cfg.sign_k)
     ei = cora_like_edges(SEED)
     rng = np.random.default_rng(SEED)
     xc = torch.as_tensor(rng.normal(size=(2708, 1433)).astype(np.float32), device="cuda")
-    print(f"  selector on the Cora shape: "
-          f"{'bsr' if should_use_bsr(ei[0], ei[1], 2708, 1433) else 'edge list'}")
-    cora = bsr_case("Cora-shaped random graph (forced)", ei[0], ei[1], 2708, xc)
-    return main, cora
+    return [("main path (SoP chain)", g.edge_index[0], g.edge_index[1], g.num_nodes, x,
+             cfg.sign_k),
+            ("Cora-shaped random graph (forced)", ei[0], ei[1], 2708, xc, 0)]
+
+
+def phase_bsr_kernel(cfg, graph, power_limit: str):
+    """``bsr_spmm`` at both of :func:`bsr_shapes`; returns their rows."""
+    from s3grl_tpu_torch.ops.spmm_kernel import should_use_bsr
+
+    print(f"bsr_spmm kernel phase: card {power_limit}")
+    shapes = bsr_shapes(cfg, graph)
+    picks = [should_use_bsr(src, dst, n, x.shape[1]) for _, src, dst, n, x, _ in shapes]
+    if not picks[0]:
+        raise AssertionError("the selector does not pick bsr_spmm on the main path")
+    print(f"  selector on the Cora shape: {'bsr' if picks[1] else 'edge list'}")
+    return [bsr_case(*shape[:5], power_k=shape[5]) for shape in shapes]
+
+
+def phase_device_times(cfg, graph, split, rows, bsr_rows, power_limit: str) -> None:
+    """Each kernel's device time per call by ``torch.profiler``, on the
+    kernel phases' inputs built again; adds ``device_ms`` (and, for
+    ``bsr_spmm``, ``library_device_ms``) to their rows."""
+    import torch
+
+    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
+    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm
+
+    print(f"device time phase (torch.profiler): card {power_limit}")
+    cases, _, _ = kernel_cases(cfg, graph, split)
+    for label, kw in cases:
+        dev = device_ms_by_kernel(lambda: pos_power_rows(**kw), reps=5)
+        r = rows[label]
+        r["device_ms"] = sum(v for k, v in dev.items() if k.startswith("pos_"))
+        print(f"  pos_power_rows {label}: {fmt_device(dev)}; the two kernels "
+              f"{r['device_ms']:.4f} ms, share of bound {r['bound_ms'] / r['device_ms']:.3f}")
+    del cases
+    for (label, src, dst, n, x, _), r in zip(bsr_shapes(cfg, graph), bsr_rows):
+        adj, _, m_csr = bsr_inputs(src, dst, n)
+        dev = device_ms_by_kernel(lambda: bsr_spmm(adj, x), reps=20)
+        lib_dev = device_ms_by_kernel(lambda: torch.sparse.mm(m_csr, x), reps=20)
+        r["device_ms"] = sum(v for k, v in dev.items() if k.startswith("csr_spmm"))
+        r["library_device_ms"] = sum(lib_dev.values())
+        print(f"  bsr_spmm {label}: kernel {r['device_ms']:.4f} ms (share of bound "
+              f"{r['bound_ms'] / r['device_ms']:.3f}); torch.sparse.mm "
+              f"{r['library_device_ms']:.4f} ms ({fmt_device(lib_dev)})")
 
 
 def phase_end_to_end(cfg, graph, split):
@@ -431,8 +536,10 @@ def main(argv=None) -> int:
     phase_build()
     graph, split = split_graph(cfg)
     rows = phase_kernels(cfg, graph, split, power_limit)
-    bsr_main, _ = phase_bsr_kernel(cfg, graph, power_limit)
+    bsr_rows = phase_bsr_kernel(cfg, graph, power_limit)
     launches, hist = phase_end_to_end(cfg, graph, split)
+    phase_device_times(cfg, graph, split, rows, bsr_rows, power_limit)
+    bsr_main = bsr_rows[0]
 
     # pos_power_rows reports the global-id shape of the bucket that took
     # the most links on the PoS path; bsr_spmm the SoP chain's one product.
@@ -452,6 +559,8 @@ def main(argv=None) -> int:
         "launches": launches["PoS"]["pos_power_rows"], "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None, "shape": label,
+        "device_ms": r["device_ms"], "selector_phase_ms": r["phase1_ms"],
+        "resolved_entries": r["resolved_entries"],
         "launches_by_path": by_path["pos_power_rows"],
     }, {
         "name": "bsr_spmm", "route": "cuda",
@@ -464,6 +573,7 @@ def main(argv=None) -> int:
         "launches_by_path": by_path["bsr_spmm"],
         "edge_list_ms": bsr_main["edge_list_ms"],
         "bound_ms_dense_blocks": bsr_main["bound_ms_dense_blocks"],
+        "device_ms": bsr_main["device_ms"], "library_device_ms": bsr_main["library_device_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,8 @@
 
 S3GRL link prediction (enclosing-subgraph extraction, PoS, SoP and hybrid
 diffusion operators, the SIGNNet scorer) on an NVIDIA GPU. The PoS operator
-kernel (``csrc/pos_power_rows.cu``) and the block-sparse SpMM of the SoP
-chain (``csrc/bsr_spmm.cu``) are written by hand in CUDA C++ and built at
+kernels (``csrc/pos_power_rows.cu``) and the sparse SpMM of the SoP chain
+(``csrc/bsr_spmm.cu``) are written by hand in CUDA C++ and built at
 first use; everything else is plain torch. The package imports neither JAX nor
 ``s3grl_tpu``: the JAX package is the reference the tests hold it to.
 """

@@ -1,155 +1,177 @@
-// Block-sparse (BSR) SpMM Y = M @ X on Hopper (sm_90a), float32.
+// Sparse SpMM Y = M @ X on Hopper (sm_90a), float32, walking only M's nonzeros.
 //
 // Replaces the TPU kernel s3grl_tpu/ops/spmm_pallas.py::_bsr_spmm_padded.
-// M is stored as NB dense 128×128 blocks sorted by row block; row block r
-// owns blocks row_ptr[r] .. row_ptr[r+1], and block j covers the columns
-// (X's rows) block_cols[j]*128 .. +127. X is [N, C] and Y is [N, C], both
-// row-major with no padding: the kernel masks rows >= N and columns >= C.
+// The TPU kernel multiplies M's 128×128 dense blocks on the matrix unit. On
+// the graphs it serves those blocks are mostly zeros (97.5 % on the
+// USAir-shaped main path, 99.87 % on a Cora-shaped graph), so here M comes in
+// the CSR form that blockify() reads out of the same blocks: row_ptr [N+1],
+// cols [nnz], vals [nnz], sorted by (row, column). X and Y are [N, C],
+// row-major, unpadded.
 //
-// The TPU kernel sums a row block across consecutive grid steps, which run
-// in order there. Blocks of a CUDA grid run in no order, so here one thread
-// block owns one (row block, 128-column tile of X) and loops over that row
-// block's nonzero blocks itself, keeping the sum in registers, and writes
-// its output tile once: no atomics, no second pass, and a fixed summation
-// order, so a run repeats bit for bit. A row block with no blocks writes 0.
+// What bounds it on an H100: bytes. The least traffic is the nonzeros (value
+// and column, 8 bytes each) with X read and Y written once,
+// nnz·8 + 2·N·C·4 bytes, for 2·nnz·C FLOP: well under one FLOP per byte.
 //
-// What bounds it on an H100: operations. Per nonzero block it does
-// 2·128²·C FLOP on 64 KB of M and 512·C bytes of X, about 128 FLOP per
-// byte at any C, above the card's f32 ratio (67 TFLOP/s over 3.35 TB/s,
-// about 20). So the design is a register-tiled f32 product: each k-slice of
-// 32 columns of a block (transposed, 16.5 KB) and the matching 32 rows of
-// the X tile (16 KB) are staged in shared memory; each of 256 threads keeps
-// an 8×8 tile of the 128×128 output in registers (rows and columns in two
-// strips of 4, so shared-memory reads are 16-byte and conflict-free) and
-// does 64 FMA per 4 shared loads. The next slice's global loads are issued
-// into registers before the current slice's FMAs, to hide their latency.
-// f32 throughout, no TF32 (the port's precision rule); tensor cores are
-// later work. X rows need not be 16-byte aligned (C = 1,025 on the main
-// path), so X is read with scalar loads, coalesced along a row.
+// Design: W warps own one output row and a tile of 32·V columns (V = 1, 2
+// or 4 floats a lane, picked by the launcher from C). Each warp walks its
+// share of the row's nonzeros, 32 at a time: each lane loads one
+// (col, val) pair and __shfl_sync hands each pair to the whole warp, which
+// reads row `col` of X coalesced along the columns and accumulates in the
+// row's order with f32 FMA (no TF32). W = 1 where no row has more than 32
+// nonzeros; else W = 4, warp w taking the nonzeros' 32-runs w, w + 4, ...,
+// so a hub row's chain of dependent loads is a quarter as long, and the
+// four partial tiles are added in a fixed order in shared memory. No
+// atomics, so two runs give the same bits; an empty row writes 0. Y is
+// written once. An X row is read again for every nonzero that names it; X
+// (1.4 MB on the main path, 15.5 MB on the Cora shape) stays in the 50 MB
+// L2, so those re-reads are L2 hits. Rows of C = 1,025 floats are not
+// 16-byte aligned, so X is read with scalar loads; where C % 4 == 0 and X
+// and Y are 16-byte aligned, with float4.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBS = 128;       // block size of the BSR layout
-constexpr int kTile = 128;     // output columns per thread block
-constexpr int kSlice = 32;     // k depth staged per step
 constexpr int kThreads = 256;
-constexpr int kPadA = 4;       // keeps rows of the transposed slice 16-byte aligned
-constexpr int kSteps = kBS / kSlice;
-// Per thread and step: M slice 128×32 = 4 float4, X slice 32×128 = 16 floats.
-constexpr int kLoadsA = kBS * kSlice / 4 / kThreads;
-constexpr int kLoadsB = kSlice * kTile / kThreads;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLongRow = 32;  // rows longer than this are split over kSplit warps
+constexpr int kSplit = 4;
 
+// Column of accumulator q of lane `lane` in a tile starting at col0: scalar
+// route col0 + q·32 + lane; float4 route (V = 4) col0 + lane·4 + q.
+template <bool kVec4>
+__device__ __forceinline__ int col_of(int col0, int lane, int q) {
+  return kVec4 ? col0 + lane * 4 + q : col0 + q * 32 + lane;
+}
+
+template <int V, int W, bool kVec4>
 __global__ void __launch_bounds__(kThreads)
-bsr_spmm_kernel(const float* __restrict__ blocks,    // [NB, 128, 128]
-                const int* __restrict__ row_ptr,     // [n_rb + 1]
-                const int* __restrict__ block_cols,  // [NB]
-                const float* __restrict__ x,         // [N, C]
-                float* __restrict__ y,               // [N, C]
-                int N, int C) {
-  __shared__ __align__(16) float As[kSlice][kBS + kPadA];  // M slice, k-major
-  __shared__ __align__(16) float Bs[kSlice][kTile];        // X slice
+csr_spmm_kernel(const int* __restrict__ row_ptr,  // [N + 1]
+                const int* __restrict__ cols,     // [nnz]
+                const float* __restrict__ vals,   // [nnz]
+                const float* __restrict__ x,      // [N, C]
+                float* __restrict__ y,            // [N, C]
+                int N, int C, int n_tiles) {
+  static_assert(!kVec4 || V == 4, "the float4 route keeps 4 floats a lane");
+  __shared__ float part[W > 1 ? kWarps : 1][32 * V];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t item = static_cast<int64_t>(blockIdx.x) * (kWarps / W) + warp / W;
+  const bool active = item < static_cast<int64_t>(N) * n_tiles;
+  if (W == 1 && !active) return;  // whole warps only
+  const int row = active ? static_cast<int>(item / n_tiles) : 0;
+  const int col0 = active ? static_cast<int>(item % n_tiles) * (32 * V) : C;
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;   // column group
-  const int ty = tid >> 4;   // row group
-  const int col0 = blockIdx.x * kTile;
-  const int r = blockIdx.y;
-  const int first = row_ptr[r];
-  const int n_steps = (row_ptr[r + 1] - first) * kSteps;
+  float acc[V];
+#pragma unroll
+  for (int q = 0; q < V; ++q) acc[q] = 0.f;
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  float4 ra[kLoadsA];
-  float rb[kLoadsB];
-  auto load = [&](int step) {
-    const int blk = first + step / kSteps;
-    const int k0 = (step % kSteps) * kSlice;
-    const float* m = blocks + static_cast<int64_t>(blk) * kBS * kBS;
-#pragma unroll
-    for (int q = 0; q < kLoadsA; ++q) {
-      const int i = tid + q * kThreads;  // float4 index in the 128×32 slice
-      const int row = i / (kSlice / 4), kq = i % (kSlice / 4);
-      ra[q] = *reinterpret_cast<const float4*>(m + row * kBS + k0 + kq * 4);
+  const int first = active ? row_ptr[row] : 0;
+  const int last = active ? row_ptr[row + 1] : 0;
+  for (int base = first + (warp % W) * 32; base < last; base += 32 * W) {
+    const int n = min(32, last - base);  // the same in every lane
+    int my_c = 0;
+    float my_v = 0.f;
+    if (lane < n) {
+      my_c = __ldg(cols + base + lane);
+      my_v = __ldg(vals + base + lane);
     }
-    const int64_t xrow0 = static_cast<int64_t>(block_cols[blk]) * kBS + k0;
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) {
+      const int c = __shfl_sync(kFull, my_c, j);
+      const float v = __shfl_sync(kFull, my_v, j);
+      const float* xr = x + static_cast<int64_t>(c) * C;
+      if constexpr (kVec4) {
+        if (col_of<true>(col0, lane, 0) < C) {
+          const float4 t = __ldg(reinterpret_cast<const float4*>(xr + col_of<true>(col0, lane, 0)));
+          acc[0] = fmaf(v, t.x, acc[0]);
+          acc[1] = fmaf(v, t.y, acc[1]);
+          acc[2] = fmaf(v, t.z, acc[2]);
+          acc[3] = fmaf(v, t.w, acc[3]);
+        }
+      } else {
 #pragma unroll
-    for (int q = 0; q < kLoadsB; ++q) {
-      const int i = tid + q * kThreads;
-      const int kk = i / kTile, n = i % kTile;
-      const int64_t xr = xrow0 + kk;
-      const int col = col0 + n;
-      rb[q] = (xr < N && col < C) ? x[xr * C + col] : 0.f;
+        for (int q = 0; q < V; ++q) {
+          const int col = col_of<false>(col0, lane, q);
+          if (col < C) acc[q] = fmaf(v, __ldg(xr + col), acc[q]);
+        }
+      }
     }
-  };
-
-  if (n_steps > 0) load(0);
-  for (int step = 0; step < n_steps; ++step) {
-#pragma unroll
-    for (int q = 0; q < kLoadsA; ++q) {
-      const int i = tid + q * kThreads;
-      const int row = i / (kSlice / 4), kq = i % (kSlice / 4);
-      As[kq * 4 + 0][row] = ra[q].x;
-      As[kq * 4 + 1][row] = ra[q].y;
-      As[kq * 4 + 2][row] = ra[q].z;
-      As[kq * 4 + 3][row] = ra[q].w;
-    }
-#pragma unroll
-    for (int q = 0; q < kLoadsB; ++q) {
-      const int i = tid + q * kThreads;
-      Bs[i / kTile][i % kTile] = rb[q];
-    }
-    __syncthreads();
-    if (step + 1 < n_steps) load(step + 1);
-#pragma unroll 8
-    for (int k = 0; k < kSlice; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 
-  // Rows ty*4 + {0..3} and 64 + ty*4 + {0..3}; columns likewise with tx.
+  if constexpr (W > 1) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = r * kBS + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (row >= N) continue;
+    for (int q = 0; q < V; ++q) part[warp][q * 32 + lane] = acc[q];
+    __syncthreads();
+    if (!active || warp % W != 0) return;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (col < C) y[static_cast<int64_t>(row) * C + col] = acc[i][j];
+    for (int q = 0; q < V; ++q) {
+      acc[q] = part[warp][q * 32 + lane];
+#pragma unroll
+      for (int w = 1; w < W; ++w) acc[q] += part[warp + w][q * 32 + lane];
+    }
+  }
+  float* yr = y + static_cast<int64_t>(row) * C;
+  if constexpr (kVec4) {
+    const int col = col_of<true>(col0, lane, 0);
+    if (col < C) *reinterpret_cast<float4*>(yr + col) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      const int col = col_of<false>(col0, lane, q);
+      if (col < C) yr[col] = acc[q];
     }
   }
 }
+
+template <int V, bool kVec4>
+cudaError_t launch(const int* row_ptr, const int* cols, const float* vals,
+                   const float* x, float* y, int N, int C, int max_row,
+                   cudaStream_t stream) {
+  const int n_tiles = (C + 32 * V - 1) / (32 * V);
+  const int w = max_row > kLongRow ? kSplit : 1;
+  const int64_t items = static_cast<int64_t>(N) * n_tiles;
+  const int64_t blocks = (items + kWarps / w - 1) / (kWarps / w);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (w == 1) {
+    csr_spmm_kernel<V, 1, kVec4><<<grid, kThreads, 0, stream>>>(row_ptr, cols, vals, x, y, N, C, n_tiles);
+  } else {
+    csr_spmm_kernel<V, kSplit, kVec4><<<grid, kThreads, 0, stream>>>(row_ptr, cols, vals, x, y, N, C, n_tiles);
+  }
+  return cudaGetLastError();
+}
+
+// Floats a lane keeps (V) for C columns on the scalar route.
+int lane_width(int C) { return C <= 32 ? 1 : C <= 64 ? 2 : 4; }
 
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-int s3grl_bsr_spmm(const float* blocks, const int* row_ptr, const int* block_cols,
-                   const float* x, float* y, int n_rb, int N, int C, void* stream) {
-  const dim3 grid((C + kTile - 1) / kTile, n_rb);
-  bsr_spmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      blocks, row_ptr, block_cols, x, y, N, C);
-  return static_cast<int>(cudaGetLastError());
+// Launch on `stream`; `max_row` is the most nonzeros in a row of M.
+// Returns the cudaError_t of the launch (0 = success).
+int s3grl_csr_spmm(const int* row_ptr, const int* cols, const float* vals,
+                   const float* x, float* y, int N, int C, int max_row, void* stream) {
+  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (vec4) {
+    err = launch<4, true>(row_ptr, cols, vals, x, y, N, C, max_row, s);
+  } else {
+    switch (lane_width(C)) {
+      case 1: err = launch<1, false>(row_ptr, cols, vals, x, y, N, C, max_row, s); break;
+      case 2: err = launch<2, false>(row_ptr, cols, vals, x, y, N, C, max_row, s); break;
+      default: err = launch<4, false>(row_ptr, cols, vals, x, y, N, C, max_row, s); break;
+    }
+  }
+  return static_cast<int>(err);
 }
 
-const char* s3grl_bsr_spmm_error_string(int err) {
+const char* s3grl_csr_spmm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -10,7 +10,7 @@ store
 
 and x = [[1, X[src]], [1, X[dst]]]. No sparse matrix and no SpGEMM:
 
-1. the global chain ``Y_k = Â^k X`` runs once, through the block-sparse
+1. the global chain ``Y_k = Â^k X`` runs once, through the sparse SpMM
    kernel (``ops/spmm_kernel.power_chain``) or the edge-list route
    (``ops/spmm.spmm``), as :func:`~s3grl_tpu_torch.ops.spmm_kernel.should_use_bsr`
    picks from the graph's shape;

@@ -1,14 +1,16 @@
-"""Block-sparse SpMM: the CUDA kernel's wrapper and its plain torch version.
+"""Sparse SpMM for the SoP chain: the CUDA kernel's wrapper and its plain
+torch versions.
 
 ``bsr_spmm`` replaces ``s3grl_tpu/ops/spmm_pallas.py::_bsr_spmm_padded``
 (through its wrappers ``bsr_spmm`` and ``power_chain``): ``Y = M @ X`` for
-M in 128×128 block-sparse (BSR) form, ``M[dst, src] = w``, built once per
-graph on the host by :func:`blockify`. The route selector
-:func:`should_use_bsr` picks between this and the edge-list route
-(``ops/spmm.spmm``) from the graph's shape.
+M built once per graph on the host by :func:`blockify`, ``M[dst, src] = w``.
+``blockify`` keeps the JAX package's 128×128 block-sparse (BSR) layout and
+also reads the CSR form of the same M out of those blocks; the kernel walks
+the CSR nonzeros. The route selector :func:`should_use_bsr` picks between
+this and the edge-list route (``ops/spmm.spmm``) from the graph's shape.
 
-On CPU tensors the wrapper runs ``bsr_spmm_reference``; on CUDA tensors it
-launches the kernel (``csrc/bsr_spmm.cu``) or raises.
+On CPU tensors the wrapper runs ``bsr_spmm_reference`` (the dense blocks);
+on CUDA tensors it launches the kernel (``csrc/bsr_spmm.cu``) or raises.
 """
 from __future__ import annotations
 
@@ -30,11 +32,15 @@ BSR_BYTES_FACTOR = 1.0
 
 @dataclass(frozen=True)
 class BlockedAdjacency:
-    """BSR form of a sparse matrix: dense nonzero blocks + block coords.
+    """A sparse matrix M in BSR form (dense nonzero blocks + block coords)
+    and in CSR form, both on one device.
 
     Blocks are sorted by (row_block, col_block); every row block appears at
     least once (empty row blocks carry an explicit zero block), as in the
     JAX package. ``row_ptr[r] .. row_ptr[r + 1]`` are row block r's blocks.
+    The CSR fields hold the nonzero entries of those blocks in rows and
+    columns below ``num_nodes``, sorted by (row, column): row i's are
+    ``csr_row_ptr[i] .. csr_row_ptr[i + 1]``.
     """
 
     blocks: torch.Tensor  # [NB, BS, BS] float32
@@ -43,6 +49,10 @@ class BlockedAdjacency:
     row_ptr: torch.Tensor  # [n_rb + 1] int32
     num_nodes: int
     num_row_blocks: int
+    csr_row_ptr: torch.Tensor  # [N + 1] int32
+    csr_cols: torch.Tensor  # [nnz] int32
+    csr_vals: torch.Tensor  # [nnz] float32
+    csr_max_row: int  # the most nonzeros in one row
 
     @property
     def num_blocks(self) -> int:
@@ -77,9 +87,14 @@ def blockify(
     budget_bytes: int = BUDGET_BYTES,
     device="cuda",
 ) -> BlockedAdjacency:
-    """Build the BSR layout on the host (one-off per graph) and move it to
-    ``device``. Raises ValueError when the dense blocks would exceed
-    ``budget_bytes``.
+    """Build the BSR layout and its CSR form on the host (one-off per graph)
+    and move them to ``device``. Raises ValueError when the dense blocks
+    would exceed ``budget_bytes``.
+
+    The CSR form takes its values from the finished blocks, so both forms
+    hold the same values: duplicate edges are summed, entries that sum to
+    zero and the explicit zero blocks drop out, and so do entries in rows
+    or columns >= ``num_nodes`` (they meet no row of X or Y).
 
     Row convention matches ops/spmm.py::spmm: the produced matrix M satisfies
     M[dst, src] = w(src->dst), i.e. Y = M @ X aggregates incoming messages —
@@ -127,6 +142,17 @@ def blockify(
     row_ptr = np.concatenate(
         [[0], np.cumsum(np.bincount(all_rows, minlength=n_rb))]
     ).astype(np.int32)
+
+    # The CSR form: each distinct (dst, src) pair once, sorted, its value
+    # read back from the block entry the pair's edges were summed into.
+    width = int(edge_src.max()) + 1 if len(edge_src) else 1
+    pair, first = np.unique(edge_dst[order] * width + edge_src[order], return_index=True)
+    rows, cols = pair // width, pair % width
+    vals = blocks[edge_slot[first], r_loc[first], c_loc[first]]
+    keep = (vals != 0) & (rows < num_nodes) & (cols < num_nodes)
+    rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    row_nnz = np.bincount(rows, minlength=num_nodes)
+    csr_row_ptr = np.concatenate([[0], np.cumsum(row_nnz)]).astype(np.int32)
     return BlockedAdjacency(
         blocks=torch.as_tensor(blocks, device=dev),
         block_rows=torch.as_tensor(all_rows, device=dev),
@@ -134,6 +160,10 @@ def blockify(
         row_ptr=torch.as_tensor(row_ptr, device=dev),
         num_nodes=num_nodes,
         num_row_blocks=n_rb,
+        csr_row_ptr=torch.as_tensor(csr_row_ptr, device=dev),
+        csr_cols=torch.as_tensor(cols.astype(np.int32), device=dev),
+        csr_vals=torch.as_tensor(vals, device=dev),
+        csr_max_row=int(row_nnz.max(initial=0)),
     )
 
 
@@ -152,7 +182,9 @@ def should_use_bsr(
     and an X tile in and an output tile out per block). With scattered
     edges NB approaches E and BSR loses; with clustered edges NB ≪ E and
     BSR wins. BSR is also refused when its blocks exceed ``budget_bytes``.
-    NB is counted exactly, by :func:`num_blocks`.
+    NB is counted exactly, by :func:`num_blocks`. The byte model is the
+    dense-block layout's (the JAX kernel's), not that of the CUDA kernel,
+    which walks the CSR nonzeros.
     """
     e = len(edge_src)
     if e == 0:
@@ -184,14 +216,26 @@ def bsr_spmm_reference(adj: BlockedAdjacency, x: torch.Tensor) -> torch.Tensor:
     return out.view(-1, c)[:n]
 
 
+def csr_spmm_reference(adj: BlockedAdjacency, x: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of the kernel's own walk: each CSR nonzero times
+    its row of X, added into its output row with ``index_add_``.
+    Returns [N, C] float32."""
+    n, c = x.shape
+    counts = adj.csr_row_ptr[1:] - adj.csr_row_ptr[:-1]
+    rows = torch.repeat_interleave(torch.arange(n, device=x.device), counts.long())
+    prod = adj.csr_vals[:, None] * x[adj.csr_cols.long()]
+    out = torch.zeros((n, c), dtype=torch.float32, device=x.device)
+    return out.index_add_(0, rows, prod)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("bsr_spmm")
     if not getattr(lib, "_s3grl_typed", False):
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.s3grl_bsr_spmm.argtypes = [p, p, p, p, p, i32, i32, i32, p]
-        lib.s3grl_bsr_spmm.restype = i32
-        lib.s3grl_bsr_spmm_error_string.argtypes = [i32]
-        lib.s3grl_bsr_spmm_error_string.restype = ctypes.c_char_p
+        lib.s3grl_csr_spmm.argtypes = [p, p, p, p, p, i32, i32, i32, p]
+        lib.s3grl_csr_spmm.restype = i32
+        lib.s3grl_csr_spmm_error_string.argtypes = [i32]
+        lib.s3grl_csr_spmm_error_string.restype = ctypes.c_char_p
         lib._s3grl_typed = True
     return lib
 
@@ -200,7 +244,8 @@ def bsr_spmm(adj: BlockedAdjacency, x: torch.Tensor) -> torch.Tensor:
     """Y = M @ X for ``x`` [N, C] float32. Returns [N, C] float32.
 
     CPU tensors go to ``bsr_spmm_reference``. CUDA tensors launch the
-    kernel on the current stream; anything it does not take raises.
+    kernel on the current stream, which reads the CSR fields of ``adj``;
+    anything it does not take raises.
     ``bsr_spmm.launches`` counts the launches.
     """
     dev = x.device
@@ -209,30 +254,26 @@ def bsr_spmm(adj: BlockedAdjacency, x: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"bsr_spmm runs on cpu or cuda, got {dev}")
     n, c = x.shape
-    nb, bs = adj.num_blocks, BLOCK_SIZE
-    n_rb = adj.num_row_blocks
+    nnz = int(adj.csr_cols.shape[0])
     if n != adj.num_nodes:
         raise ValueError(f"x has {n} rows, the adjacency {adj.num_nodes} nodes")
     _build.check_arg(x, "x", torch.float32, (n, c), dev)
-    _build.check_arg(adj.blocks, "blocks", torch.float32, (nb, bs, bs), dev)
-    _build.check_arg(adj.block_rows, "block_rows", torch.int32, (nb,), dev)
-    _build.check_arg(adj.block_cols, "block_cols", torch.int32, (nb,), dev)
-    _build.check_arg(adj.row_ptr, "row_ptr", torch.int32, (n_rb + 1,), dev)
-    if max(n_rb * bs, c) >= 2**31 or n_rb > 65535:
-        raise ValueError("shape too large for the kernel's grid and int32 indexing")
-    if adj.blocks.data_ptr() % 16:
-        raise ValueError("blocks must be 16-byte aligned")
+    _build.check_arg(adj.csr_row_ptr, "csr_row_ptr", torch.int32, (n + 1,), dev)
+    _build.check_arg(adj.csr_cols, "csr_cols", torch.int32, (nnz,), dev)
+    _build.check_arg(adj.csr_vals, "csr_vals", torch.float32, (nnz,), dev)
+    if max(n * c, nnz) >= 2**31:
+        raise ValueError("shape too large for the kernel's int32 indexing")
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
     if n == 0 or c == 0:
         return out
     lib = _lib()
-    err = lib.s3grl_bsr_spmm(
-        adj.blocks.data_ptr(), adj.row_ptr.data_ptr(), adj.block_cols.data_ptr(),
-        x.data_ptr(), out.data_ptr(), n_rb, n, c,
+    err = lib.s3grl_csr_spmm(
+        adj.csr_row_ptr.data_ptr(), adj.csr_cols.data_ptr(), adj.csr_vals.data_ptr(),
+        x.data_ptr(), out.data_ptr(), n, c, adj.csr_max_row,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
-        msg = lib.s3grl_bsr_spmm_error_string(err).decode()
+        msg = lib.s3grl_csr_spmm_error_string(err).decode()
         raise RuntimeError(f"bsr_spmm launch failed: {msg} ({err})")
     bsr_spmm.launches += 1
     return out

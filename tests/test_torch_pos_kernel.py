@@ -11,7 +11,12 @@ import pytest
 import torch
 
 from s3grl_tpu.ops.pos_pallas import pos_power_rows as jax_pos_power_rows
-from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
+from s3grl_tpu_torch.ops.pos_kernel import (
+    _resolve_slots,
+    pos_power_rows,
+    pos_selector_rows,
+    pos_selector_rows_reference,
+)
 from tests.torch_port_helpers import kernel_inputs as _inputs
 
 TOL = dict(rtol=2e-3, atol=2e-4)
@@ -85,3 +90,56 @@ def test_cpu_tensors_never_launch():
     sel, nbr, w, x, row_ids = _inputs(3, B=2, S=16, D=4, F=3, R=2, mode="global")
     _port(sel, nbr, w, x, row_ids, 2)
     assert pos_power_rows.launches == before == 0
+
+
+def _one_pass_reference(sel, nbr, w, x, row_ids, K):
+    """The plain version as it stood before the selector phase was split
+    out: the selected rows carried and multiplied by X at every step."""
+    sel, nbr, w, x = (torch.as_tensor(a) for a in (sel, nbr, w, x))
+    row_ids = None if row_ids is None else torch.as_tensor(row_ids)
+    B, S, D = nbr.shape
+    R = sel.shape[1]
+    loc, found = _resolve_slots(nbr, row_ids, S)
+    wv = torch.where(found, w.reshape(B, S * D), torch.zeros(()))
+    coldeg = wv.reshape(B, S, D).sum(dim=-1)
+    rowdeg = torch.zeros((B, S)).scatter_add_(1, loc, wv)
+
+    def inv_sqrt(deg):
+        return torch.where(deg > 0, torch.rsqrt(torch.clamp(deg, min=1e-30)),
+                           torch.zeros_like(deg))
+
+    cd, rd = inv_sqrt(coldeg), inv_sqrt(rowdeg)
+    wn = (wv * torch.gather(rd, 1, loc)).reshape(B, S, D) * cd[:, :, None]
+    h = (torch.arange(S)[None, None, :] == sel.long()[:, :, None]).float()
+    outs = [torch.bmm(h, x)]
+    loc_r = loc[:, None, :].expand(B, R, S * D)
+    for _ in range(K):
+        h = (torch.gather(h, 2, loc_r).reshape(B, R, S, D) * wn[:, None]).sum(dim=-1)
+        outs.append(torch.bmm(h, x))
+    return torch.stack(outs, dim=1).numpy()
+
+
+@pytest.mark.parametrize("mode", ["local", "global"])
+@pytest.mark.parametrize("R", [4, 34], ids=["R4", "posplus-R34"])
+def test_selector_rows_times_x_match_one_pass_reference_and_jax(mode, R):
+    """H from the plain selector phase, times X, with row 0 = X[sel], gives
+    the one-pass plain version and the JAX kernel (interpret mode), PoS+'s
+    R = 34 included."""
+    K, S = 3, 64
+    sel, nbr, w, x, row_ids = _inputs(6, B=2, S=S, D=16, F=9, R=R, mode=mode)
+    sel[0, 0] = S + 3  # a selected row out of range gives a zero row
+    t = torch.as_tensor
+    ids = None if row_ids is None else t(row_ids)
+    h = pos_selector_rows_reference(t(sel), t(nbr), t(w), sign_k=K, row_ids=ids)
+    assert h.shape == (2, K * R, S)
+    assert torch.equal(pos_selector_rows(t(sel), t(nbr), t(w), sign_k=K, row_ids=ids), h)
+    assert float(h[0, 0::R].abs().max()) == 0.0
+    x0 = np.stack([np.where((sel[b] < S)[:, None], x[b, np.minimum(sel[b], S - 1)], 0.0)
+                   for b in range(2)])
+    got = np.concatenate([x0[:, None], (h.numpy() @ x).reshape(2, K, R, 9)], axis=1)
+    np.testing.assert_allclose(got, _one_pass_reference(sel, nbr, w, x, row_ids, K), **TOL)
+    # The JAX selected-row chain (the main path's, F > 127) also gives a zero
+    # row for a selected row out of range; its full chain reads a clamped row.
+    np.testing.assert_allclose(got, _jax(sel, nbr, w, x, row_ids, K, select_rows=True),
+                               **TOL)
+    np.testing.assert_allclose(_port(sel, nbr, w, x, row_ids, K), got, **TOL)

@@ -20,6 +20,7 @@ from s3grl_tpu_torch.ops.spmm_kernel import (
     blockify,
     bsr_spmm,
     bsr_spmm_reference,
+    csr_spmm_reference,
     num_blocks,
     power_chain,
     should_use_bsr,
@@ -63,6 +64,81 @@ def test_bsr_spmm_matches_jax_and_dense(n, e, c):
     x = rng.normal(size=(n, c)).astype(np.float32)
     got = bsr_spmm(blockify(src, dst, w, n, device="cpu"), torch.as_tensor(x)).numpy()
     assert got.shape == (n, c)
+    want = np.asarray(jsp.bsr_spmm(jsp.blockify(src, dst, w, n), x, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, dense @ x, rtol=1e-4, atol=1e-4)
+
+
+def _dense_from_blocks(adj):
+    """M [N, N] rebuilt from the dense blocks (rows and columns past N cut)."""
+    n, bs = adj.num_nodes, adj.blocks.shape[1]
+    n_cb = max(adj.num_row_blocks, int(adj.block_cols.max()) + 1)
+    m = np.zeros((adj.num_row_blocks * bs, n_cb * bs), np.float32)
+    for blk, r, c in zip(adj.blocks.numpy(), adj.block_rows.tolist(), adj.block_cols.tolist()):
+        m[r * bs:(r + 1) * bs, c * bs:(c + 1) * bs] += blk
+    return m[:n, :n]
+
+
+def _dense_from_csr(adj):
+    n = adj.num_nodes
+    ptr = adj.csr_row_ptr.numpy()
+    m = np.zeros((n, n), np.float32)
+    rows = np.repeat(np.arange(n), np.diff(ptr))
+    m[rows, adj.csr_cols.numpy()] = adj.csr_vals.numpy()  # (row, col) pairs are unique
+    return m
+
+
+def _csr_case(name):
+    """(src, dst, w, n) for the CSR-layout cases."""
+    rng = np.random.default_rng(11)
+    if name == "empty_row_block":  # no edge ends in rows 128..255
+        src = rng.integers(0, 300, 900)
+        dst = rng.integers(0, 300, 900)
+        dst = np.where((dst >= 128) & (dst < 256), dst % 128, dst)
+        return src, dst, rng.normal(size=900), 300
+    if name == "duplicate_edges":  # each edge three times; the first 50 sum to 0
+        src = np.tile(rng.integers(0, 200, 300), 3)
+        dst = np.tile(rng.integers(0, 200, 300), 3)
+        w = rng.normal(size=300)
+        v = np.where(np.arange(300) < 50, 0.0, w)
+        return src, dst, np.concatenate([w, v, -w]), 200
+    if name == "zero_weights":
+        src, dst = rng.integers(0, 150, 600), rng.integers(0, 150, 600)
+        w = rng.normal(size=600) * (rng.random(600) < 0.5)
+        return src, dst, w, 150
+    # n not a multiple of 128, and a source id past n (a column block past X)
+    src, dst = rng.integers(0, 333, 2000), rng.integers(0, 333, 2000)
+    return np.append(src, 400), np.append(dst, 5), rng.normal(size=2001), 333
+
+
+@pytest.mark.parametrize("case", ["empty_row_block", "duplicate_edges", "zero_weights",
+                                  "n_not_multiple_of_128"])
+def test_blockify_csr_fields_match_the_blocks(case):
+    src, dst, w, n = _csr_case(case)
+    adj = blockify(src.astype(np.int32), dst.astype(np.int32), w.astype(np.float32), n,
+                   device="cpu")
+    ptr, cols = adj.csr_row_ptr.numpy(), adj.csr_cols.numpy()
+    assert adj.csr_row_ptr.dtype == adj.csr_cols.dtype == torch.int32
+    assert adj.csr_vals.dtype == torch.float32
+    assert ptr.shape == (n + 1,) and ptr[0] == 0 and ptr[-1] == len(cols)
+    assert (np.diff(ptr) >= 0).all() and adj.csr_max_row == np.diff(ptr).max()
+    for i in range(n):
+        assert (np.diff(cols[ptr[i]:ptr[i + 1]]) > 0).all()  # sorted, no repeats
+    assert ((cols >= 0) & (cols < n)).all() and (adj.csr_vals.numpy() != 0).all()
+    np.testing.assert_array_equal(_dense_from_csr(adj), _dense_from_blocks(adj))
+    if case == "empty_row_block":
+        assert (ptr[128:257] == ptr[128]).all()
+
+
+@pytest.mark.parametrize("n,e,c", SHAPES)
+def test_csr_reference_matches_bsr_reference_and_jax(n, e, c):
+    rng = np.random.default_rng(n + 3)
+    src, dst, w, dense = _random_coo(rng, n, e)
+    x = rng.normal(size=(n, c)).astype(np.float32)
+    adj = blockify(src, dst, w, n, device="cpu")
+    got = csr_spmm_reference(adj, torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, bsr_spmm_reference(adj, torch.as_tensor(x)).numpy(),
+                               rtol=1e-4, atol=1e-4)
     want = np.asarray(jsp.bsr_spmm(jsp.blockify(src, dst, w, n), x, interpret=True))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got, dense @ x, rtol=1e-4, atol=1e-4)
