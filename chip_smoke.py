@@ -24,9 +24,16 @@ non-zero without the final line:
    (PoS; SoP and hybrid with ``pool_operatorwise``); each kernel's launch
    count in each run, and its best test AUC against the JAX package's on
    the same graph and config;
-5. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
-   by ``torch.profiler``, on inputs built again. It comes last, so that no
-   profiler session has run in the process while the paths are timed.
+5. the paths of structural labels, which launch no kernel of ours, on the
+   same graph, EPOCHS epochs each: SEAL (DGCNN, DRNL) and GCN-DE (GCN, DE)
+   at Table 2's USAir widths, and the full-row PoS flow with DRNL labels
+   (``LABEL_PATHS``); each one's prep, train rate, peak memory and best
+   test AUC against the JAX package's;
+6. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
+   by ``torch.profiler``, on inputs built again; then one profiled
+   1-epoch run of each label path for its device idle share. It comes
+   last, so that no profiler session has run in the process while the
+   paths are timed.
 
 Imports nothing of JAX or the JAX package. Exits 2 when CUDA is missing.
 """
@@ -51,12 +58,24 @@ EPOCHS = 5
 # with this script's config and EPOCHS epochs, by sign type, on the CPU, from
 #   JAX_PLATFORMS=cpu python scripts/jax_synthetic_auc.py --seed 1 --epochs 5 \
 #       --sign_type {PoS,SoP,hybrid}
+#   JAX_PLATFORMS=cpu python scripts/jax_synthetic_auc.py --seed 1 --epochs 5 \
+#       --model DGCNN | --model GCN | --optimize_sign false
+# for the label paths (SEAL, GCN-DE, fullrow).
 JAX_REFERENCE_AUC = {
     "PoS": 77.23776146708104,
     "SoP": 76.65145804403888,
     "hybrid": 78.48971764861469,
+    "SEAL": 92.41111772355573,
+    "GCN-DE": 89.12032445061607,
+    "fullrow": 68.40512637949449,
 }
 AUC_SLACK = 3.0  # the port may fall at most 0.03 below it
+# A label path's slack is the larger of AUC_SLACK and the spread (max - min)
+# of the JAX package's own AUC over seeds 1-3 of the same script: SEAL
+# 92.4111 / 91.6434 / 89.9533, GCN-DE 89.1203 / 86.6713 / 83.3392, fullrow
+# 68.4051 / 57.9614 / 59.4375.
+JAX_AUC_RANGE = {"SEAL": 2.4578466955183416, "GCN-DE": 5.781168192427586,
+                 "fullrow": 10.44373237128417}
 TOL = dict(rtol=2e-3, atol=2e-4)
 BSR_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_pallas_spmm.py's bar
 # The end-to-end paths, each with the kernels it must launch.
@@ -66,16 +85,38 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12  # float32 outside the tensor cores, the same sheet
 
 
+# bench.py:432-437's run.
+BENCH = dict(
+    dataset="USAir", model="SIGN", sign_type="PoS", optimize_sign=True,
+    init_features="degree", use_feature=True, sign_k=3, node_label="zo",
+    hidden_channels=256, batch_size=32, lr=1e-4, num_hops=2,
+)
+# The paths of structural labels, which launch no kernel of ours: RunConfig
+# fields over BENCH. SEAL and GCN-DE are configs/paper/table_2.json's
+# USAir_SEAL and USAir_GCN_DE (hyperparams_per_run: no node features,
+# hidden 32, 3 layers, 2 hops, sortpool_k 0.6, batch 32, lr 1e-4). fullrow
+# is the PoS run with optimize_sign off and DRNL labels at 1 hop; its
+# dataset is links x (K+1) x S x (Z+F) x 4 bytes (4.2 MB a link at S = 256,
+# F = 1,025), so its percents are cut to about 610 links, under 2 GB.
+TABLE_2 = dict(
+    model="DGCNN", node_label="drnl", init_features="", use_feature=False,
+    hidden_channels=32, num_layers=3, num_hops=2, sortpool_k=0.6,
+    batch_size=32, lr=1e-4, dropout=0.5,
+)
+LABEL_PATHS = {
+    "SEAL": TABLE_2,
+    "GCN-DE": {**TABLE_2, "model": "GCN", "node_label": "de"},
+    "fullrow": dict(optimize_sign=False, node_label="drnl", num_hops=1,
+                    train_percent=4.0, val_percent=50.0, test_percent=50.0),
+}
+
+
 def bench_config(seed: int, epochs: int, results_dir: str):
     from s3grl_tpu_torch.config import RunConfig
 
-    # bench.py:432-437, plus a fresh dataset every run and a local results dir.
-    return RunConfig(
-        dataset="USAir", model="SIGN", sign_type="PoS", optimize_sign=True,
-        init_features="degree", use_feature=True, sign_k=3, node_label="zo",
-        hidden_channels=256, batch_size=32, lr=1e-4, num_hops=2, seed=seed,
-        epochs=epochs, delete_dataset=True, results_dir=results_dir,
-    )
+    # BENCH, plus a fresh dataset every run and a local results dir.
+    return RunConfig(**BENCH, seed=seed, epochs=epochs, delete_dataset=True,
+                     results_dir=results_dir)
 
 
 def split_graph(cfg):
@@ -129,6 +170,25 @@ def device_ms_by_kernel(fn, reps: int) -> dict[str, float]:
             name = re.split(r"[<(]", name)[0][:60]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
     return by_name
+
+
+def device_time(prof) -> tuple[float, dict[str, float], int]:
+    """(busy microseconds, device microseconds by event name, number of
+    device events) of a ``torch.profiler`` trace. Annotations on the device
+    timeline (``Optimizer.step#...``) span other kernels and are left out."""
+    from torch.autograd import DeviceType
+
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, by_name, len(spans)
 
 
 def fmt_device(by_name: dict[str, float]) -> str:
@@ -515,6 +575,106 @@ def run_path(cfg, graph, split, n_links, sign_type, kernels):
     return launches
 
 
+def split_links(cfg, split) -> dict:
+    """Each split's links at ``cfg``'s percents, drawn as the runner draws
+    them."""
+    from s3grl_tpu_torch.runner import build_split_links
+    from s3grl_tpu_torch.utils.seeding import seed_everything
+
+    rng, _ = seed_everything(cfg.seed)
+    return {s: build_split_links(s, split, getattr(cfg, f"{p}_percent"), rng)[0]
+            for s, p in (("train", "train"), ("valid", "val"), ("test", "test"))}
+
+
+def fullrow_bytes(cfg, graph, links: dict) -> int:
+    """The full-row datasets' bytes: per split, links x (K+1) x S x (Z+F) x 4,
+    S the largest size bucket of the split's subgraphs."""
+    from s3grl_tpu_torch.data.features import init_features
+    from s3grl_tpu_torch.operators.pos import measure_subgraph_sizes
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph, pick_bucket
+
+    dg = DeviceGraph.from_graph(init_features(graph, cfg.init_features), device="cuda")
+    width = int(dg.x.shape[1]) + (2 if cfg.node_label in ("de", "de+") else 1)
+    total = 0
+    for lk in links.values():
+        sizes = measure_subgraph_sizes(dg, lk.astype(np.int32), num_hops=cfg.num_hops)
+        s_max = pick_bucket(int(sizes.max()), [b for b in cfg.subgraph_buckets
+                                               if b <= cfg.max_subgraph_nodes])
+        total += len(lk) * (cfg.sign_k + 1) * s_max * width * 4
+    return total
+
+
+def phase_label_paths(cfg, graph, split) -> dict:
+    """One EPOCHS-epoch run of each label path, with every kernel's count set
+    to 0 just before it and read just after; returns each path's numbers."""
+    import dataclasses
+
+    import torch
+
+    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
+    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm
+    from s3grl_tpu_torch.runner import run_sgrl_learning
+
+    wrappers = {"pos_power_rows": pos_power_rows, "bsr_spmm": bsr_spmm}
+    rows = {}
+    for name, fields in LABEL_PATHS.items():
+        c = dataclasses.replace(cfg, **fields)
+        links = split_links(c, split)
+        n = {s: len(lk) for s, lk in links.items()}
+        extra = ""
+        if not c.optimize_sign:
+            extra = f", datasets {fullrow_bytes(c, graph, links) / 1e9:.3f} GB"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        prep, best, train_times, _, n_params = run_sgrl_learning(c, graph, split, device="cuda")
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        train_s = sum(train_times)
+        rate = c.epochs * n["train"] / train_s
+        print(f"e2e {name}: model {c.model}, node_label {c.node_label}, links {n}{extra}; "
+              f"prep {prep:.3f} s, train {rate:.1f} links/s ({c.epochs} epochs x "
+              f"{n['train']} links in {train_s:.3f} s), best test AUC {best:.4f}, params "
+              f"{n_params}, launches {launches}, max_memory_allocated {peak:.1f} MiB")
+        if not np.isfinite(best):
+            raise AssertionError(f"{name} best test AUC is not finite: {best}")
+        ref, slack = JAX_REFERENCE_AUC[name], max(AUC_SLACK, JAX_AUC_RANGE[name])
+        if best < ref - slack:
+            raise AssertionError(
+                f"{name} best test AUC {best:.4f} is more than {slack / 100} below the JAX "
+                f"package's {ref:.4f} on the same graph and config"
+            )
+        print(f"AUC check {name}: {best:.4f} vs JAX {ref:.4f} (slack {slack})")
+        rows[name] = dict(prep_s=prep, train_links_per_s=rate, peak_mib=peak, auc=best)
+    return rows
+
+
+def phase_label_idle(cfg, graph, split, power_limit: str) -> None:
+    """The device's idle share of each label path: one 1-epoch run under
+    ``torch.profiler`` (prep and eval included), 1 - busy / wall."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from s3grl_tpu_torch.runner import run_sgrl_learning
+
+    print(f"label paths' idle share (torch.profiler, 1 epoch each): card {power_limit}")
+    for name, fields in LABEL_PATHS.items():
+        c = dataclasses.replace(cfg, **fields, epochs=1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_sgrl_learning(c, graph, split, device="cuda")
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy, by_name, n_events = device_time(prof)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        print(f"  {name}: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms over "
+              f"{n_events} device events, idle share {1 - busy / wall_us:.3f}; top: "
+              + "; ".join(f"{k[:50]} {v / 1e3:.1f} ms" for k, v in top))
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -538,7 +698,9 @@ def main(argv=None) -> int:
     rows = phase_kernels(cfg, graph, split, power_limit)
     bsr_rows = phase_bsr_kernel(cfg, graph, power_limit)
     launches, hist = phase_end_to_end(cfg, graph, split)
+    phase_label_paths(cfg, graph, split)
     phase_device_times(cfg, graph, split, rows, bsr_rows, power_limit)
+    phase_label_idle(cfg, graph, split, power_limit)
     bsr_main = bsr_rows[0]
 
     # pos_power_rows reports the global-id shape of the bucket that took

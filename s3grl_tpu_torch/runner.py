@@ -1,10 +1,11 @@
 """End-to-end run orchestration on the GPU.
 
-Port of the SIGN path of ``s3grl_tpu/runner.py`` (PoS, SoP and hybrid
-operators, ``optimize_sign``), the equivalent of the reference's
-``run_sgrl_learning`` (sgrl_link_pred.py:791-1466): dataset load -> seeded
-edge split -> feature init -> operator precompute -> SIGNNet training ->
-highest-valid test metric.
+Port of ``s3grl_tpu/runner.py``'s SIGN path (PoS, SoP and hybrid
+operators, optimized or full-row) and its SEAL GNN baselines (DGCNN, GCN,
+SAGE, GIN, through ``train/gnn_loop.run_gnn_learning``), the equivalent of
+the reference's ``run_sgrl_learning`` (sgrl_link_pred.py:791-1466): dataset
+load -> seeded edge split -> feature init -> operator precompute -> SIGNNet
+training -> highest-valid test metric.
 
 Returns the reference's result tuple shape:
 (total_prep_time, best_test_score, train_times, inference_times, total_params).
@@ -12,7 +13,9 @@ Returns the reference's result tuple shape:
 Run from the command line with
 ``python -m s3grl_tpu_torch.runner --dataset USAir --sign_type PoS
 --optimize_sign --init_features degree --epochs 5 [--device cuda]``; SoP and
-hybrid also take ``--pool_operatorwise``.
+hybrid also take ``--pool_operatorwise``; ``--optimize_sign false
+--node_label drnl`` runs the full-row flow; ``--model DGCNN --node_label
+drnl --hidden_channels 32 --num_hops 2`` a SEAL baseline.
 """
 from __future__ import annotations
 
@@ -31,9 +34,11 @@ from s3grl_tpu_torch.data.graph import Graph, to_undirected
 from s3grl_tpu_torch.data.io import dataset_source_paths, load_dataset
 from s3grl_tpu_torch.data.split import EdgeSplit, do_edge_split, get_pos_neg_edges
 from s3grl_tpu_torch.operators.common import OperatorDataset
+from s3grl_tpu_torch.operators.fullrow import precompute_pos_fullrow, precompute_sop_fullrow
 from s3grl_tpu_torch.operators.pos import precompute_pos
 from s3grl_tpu_torch.operators.sop import precompute_sop
 from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+from s3grl_tpu_torch.train.gnn_loop import run_gnn_learning
 from s3grl_tpu_torch.train.logger import Logger
 from s3grl_tpu_torch.train.loop import fit_signnet
 from s3grl_tpu_torch.train.metrics import eval_metric_for_dataset, make_eval_fn
@@ -104,12 +109,12 @@ def precompute_split(
     """Dispatch the operator flow for one split (utils.py:446-496 routing)."""
     if cfg.sign_type not in ("PoS", "SoP", "hybrid"):
         raise NotImplementedError(f"sign_type {cfg.sign_type!r}")
-    if not cfg.optimize_sign:
-        raise NotImplementedError(
-            "optimize_sign=False (the full-row flow) is not ported yet: it "
-            "waits for ROADMAP module item 8"
-        )
     if cfg.sign_type == "SoP":
+        if not cfg.optimize_sign:
+            return precompute_sop_fullrow(
+                dg, links, y, sign_k=cfg.sign_k, num_hops=cfg.num_hops,
+                node_label=cfg.node_label, device=device,
+            )
         return precompute_sop(dg, links, y, sign_k=cfg.sign_k, device=device)
     if cfg.m or cfg.M:
         raise NotImplementedError(
@@ -126,6 +131,13 @@ def precompute_split(
         max_subgraph_nodes=cfg.max_subgraph_nodes,
         device=device,
     )
+    if cfg.sign_type == "PoS" and not cfg.optimize_sign:
+        # The whole subgraph is kept and node_label is live as the first
+        # feature column (utils.py:497-531, 308-312).
+        return precompute_pos_fullrow(
+            dg, links, y, node_label=cfg.node_label,
+            max_label_dist=cfg.max_label_dist, **kw,
+        )
     if cfg.sign_type == "hybrid":
         pos_ds = precompute_pos(dg, links, y, **kw)
         if cfg.sign_k == 1:
@@ -147,8 +159,6 @@ def _check_ported(cfg: RunConfig) -> None:
     missing = [
         (cfg.use_heuristic, "heuristics (use_heuristic) wait for ROADMAP module item 11"),
         (cfg.model == "WalkPool", "WalkPool waits for ROADMAP module item 12"),
-        (cfg.model not in ("SIGN", "WalkPool"),
-         f"model {cfg.model!r} (SEAL GNN baselines) waits for ROADMAP module item 10"),
         (cfg.init_representation,
          "init_representation waits for ROADMAP module item 11"),
         (cfg.profile, "profile (profiling.py) waits for ROADMAP module item 13"),
@@ -218,6 +228,9 @@ def run_sgrl_learning(
                 [graph.edge_weight, np.ones(val_ei.shape[1], dtype=np.float32)]
             )
         graph = graph.with_edges(new_ei, new_w)
+
+    if cfg.model != "SIGN":  # the SEAL GNN baselines (DGCNN, GCN, SAGE, GIN)
+        return run_gnn_learning(graph, edge_split, cfg, rng, device=dev)
 
     dg = DeviceGraph.from_graph(graph, device=dev)
     datasets = {}

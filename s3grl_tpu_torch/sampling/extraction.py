@@ -112,6 +112,19 @@ class SubgraphBatch(NamedTuple):
     sub_size: torch.Tensor
 
 
+def dense_adjacency(sub: SubgraphBatch) -> torch.Tensor:
+    """Dense [B, S, S] f32 sub-adjacency from the local neighbor structure:
+    ``adj[b, s, nbr_local[b, s, d]] += nbr_w[b, s, d]``, one scatter-add.
+
+    Padding entries have weight 0 and local index 0, so they add nothing.
+    The JAX package adds the D entries in order; with 0/1 weights every
+    order gives the same bits.
+    """
+    B, S, _ = sub.nbr_local.shape
+    adj = torch.zeros((B, S, S), dtype=sub.nbr_w.dtype, device=sub.nbr_w.device)
+    return adj.scatter_add_(2, sub.nbr_local.long(), sub.nbr_w)
+
+
 def _check_no_sampling(ratio_per_hop: float, max_nodes_per_hop) -> None:
     if ratio_per_hop < 1.0 or max_nodes_per_hop is not None:
         raise NotImplementedError(

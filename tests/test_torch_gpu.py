@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain torch versions, on a card.
+"""The port's CUDA kernels against their plain torch versions, and the
+plain-torch label paths (labels, full-row, GNN baselines) against the CPU,
+on a card.
 
 Marked ``gpu``: each test decides inside itself whether a card is present
 and skips without one. Imports no JAX, so it also runs where JAX is not
@@ -39,9 +41,9 @@ SHAPES = [
 ]
 
 
-def _cuda():
+def _cuda(why="the kernel has no CPU mode"):
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+        pytest.skip(f"needs a CUDA card: {why}")
     return torch.device("cuda")
 
 
@@ -172,3 +174,138 @@ def test_bsr_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         bsr_spmm(on_cpu, xt)
     assert bsr_spmm.launches == before
+
+
+# ---- The paths of structural labels (plain torch on the card) ----
+
+GNN_TOL = dict(rtol=1e-4, atol=1e-5)
+LABELS = ["zo", "hop", "degree", "drnl", "de", "de+"]
+CARD_VS_CPU = "it holds the card's result against the CPU's"
+
+
+def _label_inputs(num_hops=2, max_nodes=128, B=24):
+    """A CPU device graph of the synthetic USAir-shaped graph with 5 normal
+    features, and links (half of them observed edges)."""
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from torch_port_helpers import usair_like_edges
+
+    ei = usair_like_edges(1)
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(332, 5)).astype(np.float32)
+    dg = DeviceGraph.from_graph(Graph(num_nodes=332, edge_index=ei, x=x), device="cpu")
+    links = np.concatenate([ei[:, rng.choice(ei.shape[1], B // 2)].T,
+                            rng.integers(0, 332, (B - B // 2, 2))]).astype(np.int64)
+    return dg, ei, x, torch.as_tensor(links)
+
+
+def _on(dev, ei, x):
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+
+    return DeviceGraph.from_graph(Graph(num_nodes=332, edge_index=ei, x=x), device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_hops,max_nodes", [(1, 64), (2, 512)])
+def test_labels_and_dense_adjacency_on_the_card_are_bit_exact(num_hops, max_nodes):
+    from s3grl_tpu_torch.sampling.extraction import dense_adjacency, extract_subgraphs
+    from s3grl_tpu_torch.sampling.labeling import label_nodes
+
+    dev = _cuda(CARD_VS_CPU)
+    dg, ei, x, links = _label_inputs()
+    dgc = _on(dev, ei, x)
+    subs = [extract_subgraphs(g, links.to(g.device), num_hops=num_hops, max_nodes=max_nodes)
+            for g in (dg, dgc)]
+    adjs = [dense_adjacency(s) for s in subs]
+    assert torch.equal(adjs[1].cpu(), adjs[0])
+    for label in LABELS:
+        z = [label_nodes(a, s.dist, s.node_mask, node_label=label) for a, s in zip(adjs, subs)]
+        assert torch.equal(z[1].cpu(), z[0]), label
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_hops,max_nodes", [(1, 64), (2, 512)])
+def test_static_cache_batch_on_the_card_equals_the_fresh_one(num_hops, max_nodes):
+    from s3grl_tpu_torch.train.gnn_loop import batch_from_cache, extract_and_label
+
+    dev = _cuda(CARD_VS_CPU)
+    _, ei, x, links = _label_inputs()
+    dgc = _on(dev, ei, x)
+    lb = links.to(dev)
+    adj, _, mask, nodes = extract_and_label(dgc, lb, num_hops=num_hops, max_nodes=max_nodes,
+                                            node_label="drnl", max_iters=32)
+    got = batch_from_cache(dgc, lb, nodes, mask)
+    assert got.is_cuda and torch.equal(got, adj)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["GCN", "SAGE", "GIN", "DGCNN"])
+def test_gnn_forward_on_the_card_matches_the_cpu(model):
+    import copy
+
+    from s3grl_tpu_torch.config import RunConfig
+    from s3grl_tpu_torch.sampling.extraction import dense_adjacency, extract_subgraphs
+    from s3grl_tpu_torch.sampling.labeling import label_nodes
+    from s3grl_tpu_torch.train.gnn_loop import build_gnn_model
+
+    dev = _cuda(CARD_VS_CPU)
+    dg, _, _, links = _label_inputs()
+    sub = extract_subgraphs(dg, links, num_hops=2, max_nodes=512)
+    adj = dense_adjacency(sub)
+    label = "de" if model == "GCN" else "drnl"
+    z = label_nodes(adj, sub.dist, sub.node_mask, node_label=label)
+    x = dg.x[sub.nodes.long()] * sub.node_mask[:, :, None]
+    cfg = RunConfig(model=model, hidden_channels=32, num_layers=3, use_feature=True)
+    cpu = build_gnn_model(cfg, 100, 5, generator=torch.Generator().manual_seed(3))
+    card = copy.deepcopy(cpu).to(dev)
+    for m in (cpu, card):
+        m.eval()
+    with torch.no_grad():
+        want = cpu(adj, z, sub.node_mask, x)
+        got = card(adj.to(dev), z.to(dev), sub.node_mask.to(dev), x.to(dev))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **GNN_TOL)
+
+
+@pytest.mark.gpu
+def test_fullrow_pos_on_the_card_matches_the_cpu():
+    from s3grl_tpu_torch.operators.fullrow import precompute_pos_fullrow
+
+    dev = _cuda(CARD_VS_CPU)
+    dg, ei, x, links = _label_inputs()
+    y = np.ones(len(links), np.float32)
+    kw = dict(num_hops=1, sign_k=3, node_label="drnl", buckets=(32, 64, 128),
+              max_subgraph_nodes=128)
+    want = precompute_pos_fullrow(dg, links.numpy(), y, device="cpu", **kw)
+    got = precompute_pos_fullrow(_on(dev, ei, x), links.numpy(), y, device=dev, **kw)
+    assert got.xs.is_cuda
+    assert torch.equal(got.row_mask.cpu(), want.row_mask)
+    np.testing.assert_allclose(got.xs.cpu().numpy(), want.xs.numpy(), **TOL)
+
+
+@pytest.mark.gpu
+def test_run_gnn_learning_defaults_to_the_card(monkeypatch):
+    from s3grl_tpu_torch.config import RunConfig
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.data.split import do_edge_split
+    from s3grl_tpu_torch.train import gnn_loop
+    from s3grl_tpu_torch.utils.seeding import seed_everything
+    from torch_port_helpers import usair_like_edges
+
+    _cuda("it checks where the run puts its tensors")
+    built = []
+
+    def spy(*args, **kwargs):
+        built.append(build(*args, **kwargs))
+        return built[-1]
+
+    build = gnn_loop.build_gnn_model
+    monkeypatch.setattr(gnn_loop, "build_gnn_model", spy)
+    rng, _ = seed_everything(1)
+    graph, split = do_edge_split(Graph(num_nodes=332, edge_index=usair_like_edges(1)),
+                                 val_ratio=0.05, test_ratio=0.1, rng=rng)
+    cfg = RunConfig(model="DGCNN", node_label="drnl", hidden_channels=16, num_hops=1,
+                    epochs=1, train_percent=10.0, val_percent=50.0, test_percent=50.0)
+    _, best, _, _, _ = gnn_loop.run_gnn_learning(graph, split, cfg, rng)
+    assert np.isfinite(best)
+    assert all(p.is_cuda for p in built[0].parameters())

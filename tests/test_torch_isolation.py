@@ -34,6 +34,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     mods = _port_modules()
     assert "s3grl_tpu_torch.runner" in mods and "s3grl_tpu_torch.ops.pos_kernel" in mods
     assert "s3grl_tpu_torch.operators.sop" in mods and "s3grl_tpu_torch.ops.spmm_kernel" in mods
+    for m in ("sampling.labeling", "operators.fullrow", "models.gnn", "train.gnn_loop",
+              "runner_utils"):
+        assert f"s3grl_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -59,8 +62,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from s3grl_tpu_torch.operators.common import OperatorDataset
     from s3grl_tpu_torch.operators.pos import precompute_pos
     from s3grl_tpu_torch.operators.sop import precompute_sop
+    from s3grl_tpu_torch.operators.fullrow import precompute_pos_fullrow, precompute_sop_fullrow
     from s3grl_tpu_torch.runner import main, run_sgrl_learning
     from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from s3grl_tpu_torch.train.gnn_loop import run_gnn_learning
     from s3grl_tpu_torch.train.loop import fit_signnet
 
     rng = np.random.default_rng(0)
@@ -82,6 +87,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                             init_features="degree"), g),
         lambda: fit_signnet(ds, ds, ds, sign_k=1, epochs=1),
         lambda: main(["--sign_type", "PoS", "--optimize_sign", "--init_features", "degree"]),
+        lambda: precompute_pos_fullrow(dg, np.zeros((2, 2), np.int32), np.zeros(2),
+                                       num_hops=1, sign_k=1),
+        lambda: precompute_sop_fullrow(dg, np.zeros((2, 2), np.int32), np.zeros(2), sign_k=1),
+        lambda: run_gnn_learning(g, None, RunConfig(model="DGCNN"), None),
+        lambda: run_sgrl_learning(RunConfig(model="GCN", node_label="de"), g),
+        lambda: main(["--model", "DGCNN", "--node_label", "drnl"]),
+        lambda: main(["--sign_type", "PoS", "--optimize_sign", "false", "--node_label",
+                      "drnl", "--init_features", "degree"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -4,8 +4,20 @@ Graphs are made with numpy from a seed and handed to both packages as
 arrays, so the JAX package and the port see identical inputs.
 """
 import numpy as np
+import torch
 
 from s3grl_tpu_torch.data.graph import to_undirected
+
+
+def one_torch_thread():
+    """One intra-op thread while a test module of small torch ops runs, so
+    that parallel test workers do not oversubscribe the cores; the count is
+    restored after it. A module makes it its own with
+    ``pytest.fixture(autouse=True, scope="module")(one_torch_thread)``."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def random_edges(rng, n=150, e=500):
