@@ -29,11 +29,19 @@ non-zero without the final line:
    at Table 2's USAir widths, and the full-row PoS flow with DRNL labels
    (``LABEL_PATHS``); each one's prep, train rate, peak memory and best
    test AUC against the JAX package's;
-6. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
+6. the paths of feature inits, ScaLed walks and heuristics on the same
+   graph (``INIT_PATHS``): n2v-initialized PoS, ScaLed PoS and PoS+ (whose
+   subgraphs go through ``pos_power_rows`` in its local-slot mode, which
+   phase 3 also holds against its plain version on the ScaLed paths' own
+   first batch), GAE-, GIC- and SVGAE-initialized PoS, and CN, AA, PPR;
+   each one's prep, train rate, peak memory, kernel launches and best test
+   AUC against the JAX package's;
+7. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
    by ``torch.profiler``, on inputs built again; then one profiled
-   1-epoch run of each label path for its device idle share. It comes
-   last, so that no profiler session has run in the process while the
-   paths are timed.
+   1-epoch run of each path of ``IDLE_PATHS`` (one of each kind: a label
+   path, a ScaLed path, an init path, a heuristic) for its device idle
+   share. It comes last, so that no profiler session has run in the
+   process while the paths are timed.
 
 Imports nothing of JAX or the JAX package. Exits 2 when CUDA is missing.
 """
@@ -61,6 +69,11 @@ EPOCHS = 5
 #   JAX_PLATFORMS=cpu python scripts/jax_synthetic_auc.py --seed 1 --epochs 5 \
 #       --model DGCNN | --model GCN | --optimize_sign false
 # for the label paths (SEAL, GCN-DE, fullrow).
+# The paths of INIT_PATHS, from the same script with their fields as flags:
+#   ... --init_features n2v --n2v_dim 16                     (PoS-n2v)
+#   ... --m 3 --M 20 --num_hops 0 [--k_heuristic 1]           (ScaLed[-Plus])
+#   ... --num_hops 3 --init_representation GAE|GIC|SVGAE      (*-init)
+#   ... --use_heuristic CN|AA|PPR                             (a raw AUC in [0, 1])
 JAX_REFERENCE_AUC = {
     "PoS": 77.23776146708104,
     "SoP": 76.65145804403888,
@@ -68,14 +81,33 @@ JAX_REFERENCE_AUC = {
     "SEAL": 92.41111772355573,
     "GCN-DE": 89.12032445061607,
     "fullrow": 68.40512637949449,
+    "PoS-n2v": 82.57620842425445,
+    "ScaLed": 76.51920915162336,
+    "ScaLed-Plus": 90.90127620181181,
+    "GAE-init": 83.39835570543764,
+    "GIC-init": 81.03110053119971,
+    "SVGAE-init": 83.62538297075095,
+    "CN": 0.8980581454296986,
+    "AA": 0.917410566686504,
+    "PPR": 0.799466596133924,
 }
 AUC_SLACK = 3.0  # the port may fall at most 0.03 below it
 # A label path's slack is the larger of AUC_SLACK and the spread (max - min)
 # of the JAX package's own AUC over seeds 1-3 of the same script: SEAL
 # 92.4111 / 91.6434 / 89.9533, GCN-DE 89.1203 / 86.6713 / 83.3392, fullrow
-# 68.4051 / 57.9614 / 59.4375.
+# 68.4051 / 57.9614 / 59.4375. The same for INIT_PATHS' PoS paths: PoS-n2v
+# 82.5762 / 76.5569 / 80.5878, ScaLed 76.5192 / 72.8513 / 68.9143,
+# ScaLed-Plus 90.9013 / 88.6409 / 87.5229, GAE-init 83.3984 / 79.5200 /
+# 78.2579, GIC-init 81.0311 / 79.9655 / 77.0941, SVGAE-init 83.6254 /
+# 80.3695 / 83.1055.
 JAX_AUC_RANGE = {"SEAL": 2.4578466955183416, "GCN-DE": 5.781168192427586,
-                 "fullrow": 10.44373237128417}
+                 "fullrow": 10.44373237128417, "PoS-n2v": 6.019303891107455,
+                 "ScaLed": 7.6048934908669565, "ScaLed-Plus": 3.3783484351946385,
+                 "GAE-init": 5.140429248978563, "GIC-init": 3.937031180164695,
+                 "SVGAE-init": 3.2559183886913843}
+# A heuristic is deterministic: its raw AUC must equal the JAX package's
+# within this.
+HEURISTIC_AUC_TOL = 0.005
 TOL = dict(rtol=2e-3, atol=2e-4)
 BSR_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_pallas_spmm.py's bar
 # The end-to-end paths, each with the kernels it must launch.
@@ -109,6 +141,33 @@ LABEL_PATHS = {
     "fullrow": dict(optimize_sign=False, node_label="drnl", num_hops=1,
                     train_percent=4.0, val_percent=50.0, test_percent=50.0),
 }
+# The paths of feature inits, ScaLed walks and heuristics: RunConfig fields
+# over BENCH, each from a named config, cut to EPOCHS epochs; degree features
+# stand in for Cora's attributes. PoS-n2v is configs/paper/auc_s3grl.json's
+# USAir_PoS (node2vec features of dimension 16, trained for EPOCHS epochs as
+# the runner does); ScaLed and ScaLed-Plus are configs/paper/scaled.json's
+# Cora_PoS_ScaLed and Cora_PoS_Plus_ScaLed (M = 20 walks of length m = 3 from
+# each endpoint, no BFS); GAE-init and GIC-init are configs/paper/initrep.json's
+# Cora_PoS_GAE and Cora_PoS_GIC (3 hops; GAE trains EPOCHS epochs, GIC its own
+# 50), SVGAE-init the same config with the JAX package's 2,000 SVGAE epochs.
+# CN, AA and PPR score the split with the heuristic alone (a raw AUC in [0, 1]).
+INIT_PATHS = {
+    "PoS-n2v": dict(init_features="n2v", n2v_dim=16, pool_operatorwise=True),
+    "ScaLed": dict(m=3, M=20, num_hops=0, pool_operatorwise=True),
+    "ScaLed-Plus": dict(m=3, M=20, num_hops=0, pool_operatorwise=True, k_heuristic=1,
+                        k_node_set_strategy="intersection", k_pool_strategy="mean"),
+    "GAE-init": dict(init_representation="GAE", num_hops=3, pool_operatorwise=True),
+    "GIC-init": dict(init_representation="GIC", num_hops=3, pool_operatorwise=True),
+    "SVGAE-init": dict(init_representation="SVGAE", num_hops=3, pool_operatorwise=True),
+    "CN": dict(use_heuristic="CN"),
+    "AA": dict(use_heuristic="AA"),
+    "PPR": dict(use_heuristic="PPR"),
+}
+SCALED_PATHS = ("ScaLed", "ScaLed-Plus")
+# The paths profiled for their idle share, one of each kind; every path of
+# LABEL_PATHS and INIT_PATHS read 0.90-0.98 when all were profiled, and
+# the profiler's own cost grows with the device events (0.5 ms each).
+IDLE_PATHS = ("SEAL", "ScaLed", "GAE-init", "PPR")
 
 
 def bench_config(seed: int, epochs: int, results_dir: str):
@@ -223,7 +282,7 @@ def phase_build() -> None:
 
 def kernel_cases(cfg, graph, split):
     """Kernel inputs at the main path's shapes, from the main path's data:
-    (label, kwargs of pos_power_rows)."""
+    (label, kwargs of pos_power_rows, node mask [B, S] of the member slots)."""
     import torch
 
     from s3grl_tpu_torch.data.features import init_features
@@ -252,7 +311,7 @@ def kernel_cases(cfg, graph, split):
         )
         label = f"global S={S} R={sel.shape[1]} B={B}"
         cases.append((label, dict(sel_idx=sel, nbr=nbr, w=w, subg_x=x,
-                                  sign_k=cfg.sign_k, row_ids=row_ids)))
+                                  sign_k=cfg.sign_k, row_ids=row_ids), mask))
     S = 128
     B = batch_cap(S, F, D, 0, cfg.extract_batch_size)
     sub = extract_subgraphs(dg, links_for(B), num_hops=cfg.num_hops, max_nodes=S)
@@ -262,8 +321,46 @@ def kernel_cases(cfg, graph, split):
     sel = torch.tensor([[0, 1]], dtype=torch.int32, device="cuda").expand(B, 2).contiguous()
     cases.append((f"local S={S} R=2 B={B}",
                   dict(sel_idx=sel, nbr=sub.nbr_local.contiguous(), w=sub.nbr_w.contiguous(),
-                       subg_x=x.contiguous(), sign_k=cfg.sign_k, row_ids=None)))
+                       subg_x=x.contiguous(), sign_k=cfg.sign_k, row_ids=None),
+                  sub.node_mask))
+    cases += scaled_kernel_cases(cfg, dg, split)
     return cases, D, F
+
+
+def scaled_kernel_cases(cfg, dg, split):
+    """``pos_power_rows`` in local-slot mode on each ScaLed path's first
+    train batch, planned by ``scaled_batch_plan`` as ``precompute_pos``
+    plans it: the same links, seeds, bucket, batch size and CCN width."""
+    import dataclasses
+
+    import torch
+
+    from s3grl_tpu_torch.operators.pos import (
+        local_kernel_inputs, padded_ccn_width, scaled_batch_plan,
+    )
+    from s3grl_tpu_torch.sampling.random_walk import extract_rw_subgraphs
+
+    cases = []
+    for name in SCALED_PATHS:
+        c = dataclasses.replace(cfg, **INIT_PATHS[name])
+        links = split_links(c, split)["train"].astype(np.int32)
+        ccn = (padded_ccn_width(dg, links, c.k_node_set_strategy, c.max_ccn_nodes)
+               if c.k_heuristic else 0)
+        S, B, seeds = scaled_batch_plan(
+            dg, len(links), rw_m=c.m, rw_M=c.M, seed=c.seed, eff_ccn=ccn,
+            buckets=c.subgraph_buckets, max_subgraph_nodes=c.max_subgraph_nodes,
+            batch_size=c.extract_batch_size,
+        )
+        B = min(B, len(links))
+        sub = extract_rw_subgraphs(dg, torch.as_tensor(links[:B], device="cuda"),
+                                   torch.as_tensor(seeds[:B], device="cuda"),
+                                   rw_m=c.m, rw_M=c.M, max_nodes=S)
+        sel, nbr, w, x, _ = local_kernel_inputs(sub, dg.x, max_ccn=ccn,
+                                                strategy=c.k_node_set_strategy)
+        cases.append((f"{name} local S={S} R={sel.shape[1]} B={B}",
+                      dict(sel_idx=sel, nbr=nbr, w=w, subg_x=x, sign_k=c.sign_k,
+                           row_ids=None), sub.node_mask))
+    return cases
 
 
 def bound_ms_of(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -273,25 +370,31 @@ def bound_ms_of(n_bytes: float, flops: float) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bound_of(kw) -> tuple[float, str, float, float, np.ndarray]:
-    """(bound_ms, bound_by, bytes, flops, resolved entries per subgraph) for
-    one call: each input read and each output written once; operations as
-    this data needs them (one multiply-add per resolved neighbor entry and
-    selected row per step, one per (k >= 1, row, node, feature) for the
-    output)."""
-    import torch
-
+def bound_of(kw, node_mask) -> tuple[float, str, float, float, np.ndarray, float]:
+    """(bound_ms, bound_by, bytes, flops, resolved entries per subgraph,
+    bound_ms over every padded slot) for one call. The bound counts what
+    this data needs: the member slots' rows (``node_mask``) of the table,
+    its weights, X and the row ids, each read once, the output written once;
+    one multiply-add per resolved neighbor entry and selected row per step,
+    and one per (k >= 1, row, member node, feature) for the output. A padded
+    slot adds nothing to the output."""
     from s3grl_tpu_torch.ops.pos_kernel import _resolve_slots
 
     sel, nbr, w, x, K = kw["sel_idx"], kw["nbr"], kw["w"], kw["subg_x"], kw["sign_k"]
     B, S, D = nbr.shape
     F, R = x.shape[2], sel.shape[1]
-    n_bytes = 4 * (2 * B * S * D + B * S * F + B * (K + 1) * R * F + B * R
-                   + (B * S if kw["row_ids"] is not None else 0))
+    ids = kw["row_ids"] is not None
+
+    def bytes_flops(rows, entries):
+        return (4 * (2 * rows * D + rows * F + B * (K + 1) * R * F + B * R + (rows if ids else 0)),
+                2.0 * (K * R * entries + K * R * rows * F))
+
     _, found = _resolve_slots(nbr, kw["row_ids"], S)
     per_subgraph = (found & (w.reshape(B, -1) != 0)).sum(dim=1).cpu().numpy()
-    flops = 2.0 * (K * R * int(per_subgraph.sum()) + K * R * B * S * F)
-    return (*bound_ms_of(n_bytes, flops), n_bytes, flops, per_subgraph)
+    entries = int(per_subgraph.sum())
+    n_bytes, flops = bytes_flops(int(node_mask.sum()), entries)
+    padded_ms, _ = bound_ms_of(*bytes_flops(B * S, entries))
+    return (*bound_ms_of(n_bytes, flops), n_bytes, flops, per_subgraph, padded_ms)
 
 
 def phase_kernels(cfg, graph, split, power_limit: str):
@@ -307,7 +410,7 @@ def phase_kernels(cfg, graph, split, power_limit: str):
     print(f"kernel phase: D={D} F={F + 1} (features + indicator) K={cfg.sign_k}; "
           f"card {power_limit}")
     rows = {}
-    for label, kw in cases:
+    for label, kw, node_mask in cases:
         got = pos_power_rows(**kw)
         want = pos_power_rows_reference(**kw)
         torch.cuda.synchronize()
@@ -337,16 +440,19 @@ def phase_kernels(cfg, graph, split, power_limit: str):
             lib, kw["sel_idx"], kw["nbr"], kw["w"], kw["row_ids"], k, B, S, Dk,
             kw["sel_idx"].shape[1]), reps=20) for k in (kw["sign_k"], 0))
         plain_ms = cuda_ms(lambda: pos_power_rows_reference(**kw), reps=3)
-        bound_ms, by, n_bytes, flops, nnz = bound_of(kw)
+        bound_ms, by, n_bytes, flops, nnz, padded_ms = bound_of(kw, node_mask)
+        members = int(node_mask.sum())
         cap = lib.s3grl_pos_list_cap(S, Dk)
         rows[label] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=by, phase1_ms=phase1_ms,
-                           resolved_entries=int(nnz.sum()))
+                           resolved_entries=int(nnz.sum()), member_rows=members,
+                           padded_bound_ms=padded_ms)
         print(f"  {label}: max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} "
               f"(selector rows {h_err:.3e}) kernel {ms:.4f} ms (selector phase "
               f"{phase1_ms:.4f} ms, of it the table pass {table_ms:.4f} ms) "
               f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
-              f"({by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP) "
+              f"({by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP over {members} "
+              f"member rows of {B * S}; {padded_ms:.4f} ms over every padded slot) "
               f"share of bound {bound_ms / ms:.3f}; resolved entries {int(nnz.sum())} "
               f"(per subgraph mean {nnz.mean():.1f}, max {int(nnz.max())}; "
               f"{int((nnz > cap).sum())} of {B} over the {cap}-entry shared-memory list)")
@@ -483,7 +589,7 @@ def phase_device_times(cfg, graph, split, rows, bsr_rows, power_limit: str) -> N
 
     print(f"device time phase (torch.profiler): card {power_limit}")
     cases, _, _ = kernel_cases(cfg, graph, split)
-    for label, kw in cases:
+    for label, kw, _ in cases:
         dev = device_ms_by_kernel(lambda: pos_power_rows(**kw), reps=5)
         r = rows[label]
         r["device_ms"] = sum(v for k, v in dev.items() if k.startswith("pos_"))
@@ -650,9 +756,73 @@ def phase_label_paths(cfg, graph, split) -> dict:
     return rows
 
 
-def phase_label_idle(cfg, graph, split, power_limit: str) -> None:
-    """The device's idle share of each label path: one 1-epoch run under
-    ``torch.profiler`` (prep and eval included), 1 - busy / wall."""
+def phase_init_paths(cfg, graph, split) -> dict:
+    """One EPOCHS-epoch run of each path of INIT_PATHS, with every kernel's
+    count set to 0 just before it and read just after; returns each path's
+    numbers and counts."""
+    import dataclasses
+
+    import torch
+
+    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
+    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm
+    from s3grl_tpu_torch.runner import run_sgrl_learning
+
+    wrappers = {"pos_power_rows": pos_power_rows, "bsr_spmm": bsr_spmm}
+    rows = {}
+    for name, fields in INIT_PATHS.items():
+        c = dataclasses.replace(cfg, **fields)
+        n = {s: len(lk) for s, lk in split_links(c, split).items()}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        pos_power_rows.local_launches = 0
+        t0 = time.perf_counter()
+        prep, best, train_times, _, n_params = run_sgrl_learning(c, graph, split, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        local = pos_power_rows.local_launches
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        train_s = sum(train_times)
+        rate = c.epochs * n["train"] / train_s if train_s else None
+        trained = (f"train {rate:.1f} links/s ({c.epochs} epochs x {n['train']} links in "
+                   f"{train_s:.3f} s)" if rate else "no training")
+        print(f"e2e {name}: links {n}; prep {prep:.3f} s, {trained}, wall {wall:.3f} s, "
+              f"best test AUC {best:.4f}, params {n_params}, launches {launches} (local-slot "
+              f"pos_power_rows {local}), max_memory_allocated {peak:.1f} MiB")
+        if not np.isfinite(best):
+            raise AssertionError(f"{name} best test AUC is not finite: {best}")
+        ref = JAX_REFERENCE_AUC[name]
+        if c.use_heuristic:
+            if abs(best - ref) > HEURISTIC_AUC_TOL:
+                raise AssertionError(f"{name} AUC {best:.6f} differs from the JAX package's "
+                                     f"{ref:.6f} by more than {HEURISTIC_AUC_TOL}")
+            print(f"AUC check {name}: {best:.6f} vs JAX {ref:.6f} (tolerance "
+                  f"{HEURISTIC_AUC_TOL})")
+        else:
+            if launches["pos_power_rows"] == 0:
+                raise AssertionError(f"the {name} path never launched pos_power_rows")
+            if name in SCALED_PATHS and not 0 < local == launches["pos_power_rows"]:
+                raise AssertionError(f"the {name} path launched pos_power_rows "
+                                     f"{launches['pos_power_rows']} times, {local} in "
+                                     f"local-slot mode")
+            slack = max(AUC_SLACK, JAX_AUC_RANGE[name])
+            if best < ref - slack:
+                raise AssertionError(
+                    f"{name} best test AUC {best:.4f} is more than {slack / 100} below the "
+                    f"JAX package's {ref:.4f} on the same graph and config"
+                )
+            print(f"AUC check {name}: {best:.4f} vs JAX {ref:.4f} (slack {slack})")
+        rows[name] = dict(prep_s=prep, train_links_per_s=rate, peak_mib=peak, auc=best,
+                          wall_s=wall, launches=launches, local_launches=local)
+    return rows
+
+
+def phase_idle(cfg, graph, split, power_limit: str) -> None:
+    """The device's idle share of each path of IDLE_PATHS: one 1-epoch run
+    under ``torch.profiler`` (prep and eval included), 1 - busy / wall."""
     import dataclasses
 
     import torch
@@ -660,9 +830,10 @@ def phase_label_idle(cfg, graph, split, power_limit: str) -> None:
 
     from s3grl_tpu_torch.runner import run_sgrl_learning
 
-    print(f"label paths' idle share (torch.profiler, 1 epoch each): card {power_limit}")
-    for name, fields in LABEL_PATHS.items():
-        c = dataclasses.replace(cfg, **fields, epochs=1)
+    print(f"idle share (torch.profiler, 1 epoch each): card {power_limit}")
+    paths = {**LABEL_PATHS, **INIT_PATHS}
+    for name in IDLE_PATHS:
+        c = dataclasses.replace(cfg, **paths[name], epochs=1)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run_sgrl_learning(c, graph, split, device="cuda")
@@ -670,8 +841,8 @@ def phase_label_idle(cfg, graph, split, power_limit: str) -> None:
             wall_us = (time.perf_counter() - t0) * 1e6
         busy, by_name, n_events = device_time(prof)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-        print(f"  {name}: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms over "
-              f"{n_events} device events, idle share {1 - busy / wall_us:.3f}; top: "
+        print(f"  {name}: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+              f"over {n_events} device events, idle share {1 - busy / wall_us:.3f}; top: "
               + "; ".join(f"{k[:50]} {v / 1e3:.1f} ms" for k, v in top))
 
 
@@ -692,15 +863,24 @@ def main(argv=None) -> int:
     shutil.rmtree(results_dir, ignore_errors=True)
     cfg = bench_config(SEED, EPOCHS, results_dir)
     t0 = time.perf_counter()
-    power_limit = phase_environment()
-    phase_build()
+    marks = []
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        marks.append(f"{name} {time.perf_counter() - t:.1f}")
+        return out
+
+    power_limit = timed("environment", phase_environment)
+    timed("build", phase_build)
     graph, split = split_graph(cfg)
-    rows = phase_kernels(cfg, graph, split, power_limit)
-    bsr_rows = phase_bsr_kernel(cfg, graph, power_limit)
-    launches, hist = phase_end_to_end(cfg, graph, split)
-    phase_label_paths(cfg, graph, split)
-    phase_device_times(cfg, graph, split, rows, bsr_rows, power_limit)
-    phase_label_idle(cfg, graph, split, power_limit)
+    rows = timed("kernels", phase_kernels, cfg, graph, split, power_limit)
+    bsr_rows = timed("bsr_spmm", phase_bsr_kernel, cfg, graph, power_limit)
+    launches, hist = timed("e2e", phase_end_to_end, cfg, graph, split)
+    timed("label paths", phase_label_paths, cfg, graph, split)
+    init_rows = timed("init paths", phase_init_paths, cfg, graph, split)
+    timed("device times", phase_device_times, cfg, graph, split, rows, bsr_rows, power_limit)
+    timed("idle", phase_idle, cfg, graph, split, power_limit)
     bsr_main = bsr_rows[0]
 
     # pos_power_rows reports the global-id shape of the bucket that took
@@ -710,9 +890,11 @@ def main(argv=None) -> int:
     label = next((k for k in rows if k.startswith(f"global S={main_s} R=2 ")),
                  next(k for k in rows if k.startswith("global S=512 ")))
     r = rows[label]
-    by_path = {name: {t: launches[t][name] for t in launches}
+    by_path = {name: {**{t: launches[t][name] for t in launches},
+                      **{t: r["launches"][name] for t, r in init_rows.items()}}
                for name in ("pos_power_rows", "bsr_spmm")}
-    print(f"total {time.perf_counter() - t0:.1f} s")
+    local = {k: v for k, v in rows.items() if k.split()[0] in SCALED_PATHS}
+    print(f"total {time.perf_counter() - t0:.1f} s (by phase, s: {'; '.join(marks)})")
     print(power_limit)
     print(json.dumps({"kernels": [{
         "name": "pos_power_rows", "route": "cuda",
@@ -722,8 +904,15 @@ def main(argv=None) -> int:
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None, "shape": label,
         "device_ms": r["device_ms"], "selector_phase_ms": r["phase1_ms"],
-        "resolved_entries": r["resolved_entries"],
+        "resolved_entries": r["resolved_entries"], "member_rows": r["member_rows"],
+        "padded_bound_ms": r["padded_bound_ms"],
         "launches_by_path": by_path["pos_power_rows"],
+        "local_slot": [{
+            "shape": k, "max_abs_err": v["max_abs_err"], "ms": v["ms"],
+            "device_ms": v["device_ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"], "member_rows": v["member_rows"],
+            "padded_bound_ms": v["padded_bound_ms"],
+            "launches": init_rows[k.split()[0]]["local_launches"]} for k, v in local.items()],
     }, {
         "name": "bsr_spmm", "route": "cuda",
         "source": "s3grl_tpu_torch/csrc/bsr_spmm.cu",

@@ -1,11 +1,14 @@
-"""Weights of the JAX package's SIGNNet and GNN baselines as a
-``state_dict`` of the port's models.
+"""Weights of the JAX package's SIGNNet, GNN baselines and init
+representations (GAE/VGAE/ARGVA, SVGAE, GIC, node2vec) as a ``state_dict``
+of the port's models.
 
 The JAX package keeps flax variables: ``params`` and ``batch_stats``,
 nested dicts keyed ``operator_diff`` / ``link_pred_mlp``, then ``Dense_i``
 (an inner ``Dense_0`` holding ``kernel`` [in, out] and ``bias``) and
 ``MaskedBatchNorm_i`` (``scale``, ``bias``; batch stats ``mean``, ``var``).
-Pass them in as nested dicts of numpy arrays; no JAX is needed here.
+Pass them in as nested dicts of numpy arrays; no JAX is needed here. The
+init representations keep plain dicts of [in, out] arrays, whose names the
+port's modules share.
 """
 from __future__ import annotations
 
@@ -97,3 +100,34 @@ def gnn_state_dict_from_flax(variables: dict, model_name: str) -> dict:
         **{k: torch.tensor(np.asarray(v, dtype=np.float32)) for k, v in out.items()},
         **mlp,
     }
+
+
+def _tensors(params: dict, names) -> dict:
+    return {k: torch.tensor(np.asarray(params[k], dtype=np.float32)) for k in names}
+
+
+def gae_state_dict_from_jax(params: dict) -> dict:
+    """The JAX package's GAE ``{w1, w2}`` or VGAE/ARGVA ``{w1, w_mu, w_ls}``
+    -> the state_dict of ``models/gae.GCNAutoEncoder`` (same names, same
+    [in, out] layout)."""
+    names = ("w1", "w_mu", "w_ls") if "w_mu" in params else ("w1", "w2")
+    return _tensors(params, names)
+
+
+def svgae_state_dict_from_jax(params: dict) -> dict:
+    """The JAX package's SVGAE ``{w1, w_mu, w_kap}`` -> the state_dict of
+    ``models/svgae.SVGAEEncoder``."""
+    return _tensors(params, ("w1", "w_mu", "w_kap"))
+
+
+def gic_state_dict_from_jax(params: dict) -> dict:
+    """The JAX package's GIC ``{w_gcn, b_gcn, prelu_a, w_bil, b_bil}`` plus
+    its fixed cluster init ``mu_init`` (one dict) -> the state_dict of
+    ``models/gic.GICModel``."""
+    return _tensors(params, ("w_gcn", "b_gcn", "prelu_a", "w_bil", "b_bil", "mu_init"))
+
+
+def n2v_embedding_from_jax(emb) -> torch.Tensor:
+    """A node2vec embedding [N, H] of the JAX package as the float32 leaf
+    that ``models/n2v.skipgram_loss`` trains."""
+    return torch.tensor(np.asarray(emb, dtype=np.float32)).requires_grad_()

@@ -4,15 +4,18 @@ Port of ``s3grl_tpu/operators/pos.py`` (reference semantics:
 ``OptimizedSignOperations.get_PoS_prepped_ds`` / ``get_PoS_Plus_prepped_ds``,
 tuned_SIGN.py:137-262). A batch of links is processed at once:
 
-1. BFS node sets (:func:`extract_node_sets`);
+1. BFS node sets (:func:`extract_node_sets`), or with ``rw_m``/``rw_M``
+   ScaLed's random-walk subgraphs (``sampling/random_walk.py``);
 2. selected rows (the two targets + optional CCN rows, union or
    intersection, tuned_SIGN.py:229-238);
 3. the selected rows of Â^k [1|X] for k = 0..K, through the hand-written
-   kernel ``ops/pos_kernel.pos_power_rows``, which resolves subgraph
-   membership straight from the global neighbor table.
+   kernel ``ops/pos_kernel.pos_power_rows``: on BFS node sets it resolves
+   subgraph membership straight from the global neighbor table; on ScaLed's
+   local tables it runs in its local-slot mode (``row_ids=None``), as the
+   JAX package's ``use_pallas`` route does (pos.py:254-262).
 
 :func:`pos_operators` keeps the JAX package's gather path on a local
-neighbor table: the plain oracle the tests hold the kernel route against.
+neighbor table: the plain oracle the tests hold the kernel routes against.
 
 Left out of the port, because they exist for the TPU and its remote
 compiler and change no output: the sticky CCN/table-width caches, the scan
@@ -40,6 +43,7 @@ from s3grl_tpu_torch.sampling.extraction import (
     extract_node_sets,
     pick_bucket,
 )
+from s3grl_tpu_torch.sampling.random_walk import extract_rw_subgraphs
 
 # Dataset footprint limit before the bf16 and host tiers, as in the JAX
 # package (pos.py:818): the tiers change the dataset's dtype or CCN width,
@@ -81,6 +85,35 @@ def _ccn_select(nbr0, nbr1, node_mask, strategy: str, max_ccn: int, R: int):
     return sel_idx, row_mask
 
 
+def local_kernel_inputs(
+    sub: SubgraphBatch,
+    x_global: torch.Tensor,  # [N, F]
+    *,
+    max_ccn: int = 0,
+    strategy: str = "",
+):
+    """``pos_power_rows``' inputs in its local-slot mode for one extracted
+    batch: (sel_idx [B, R] i32, nbr [B, S, D] i32 local slots, w [B, S, D]
+    f32, subg_x [B, S, F+1] f32, row_mask [B, R] bool), R = 2 + max_ccn.
+    Invalid CCN slots point at row 0; the row mask zeroes them afterwards."""
+    B, S = sub.nodes.shape
+    dev = sub.nodes.device
+    x_sub = x_global[sub.nodes.long()] * sub.node_mask[:, :, None].to(torch.float32)
+    ind = torch.zeros((B, S, 1), dtype=torch.float32, device=dev)
+    ind[:, :2] = 1.0  # the indicator column on the targets (tuned_SIGN.py:177)
+    subg_x = torch.cat([ind, x_sub], dim=-1)  # [B, S, F+1]
+
+    nbr_local = sub.nbr_local.to(torch.int32).contiguous()
+    nbr0 = nbr1 = None
+    if max_ccn > 0:
+        slot = torch.arange(S, device=dev)
+        has_w = sub.nbr_w > 0
+        nbr0 = ((nbr_local[:, 0, :, None] == slot) & has_w[:, 0, :, None]).any(1)
+        nbr1 = ((nbr_local[:, 1, :, None] == slot) & has_w[:, 1, :, None]).any(1)
+    sel_idx, row_mask = _ccn_select(nbr0, nbr1, sub.node_mask, strategy, max_ccn, 2 + max_ccn)
+    return sel_idx, nbr_local, sub.nbr_w.contiguous(), subg_x, row_mask
+
+
 def pos_operators(
     sub: SubgraphBatch,
     x_global: torch.Tensor,  # [N, F]
@@ -88,41 +121,34 @@ def pos_operators(
     sign_k: int,
     max_ccn: int = 0,
     strategy: str = "",
+    use_kernel: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """PoS(+) operator features for one extracted batch, by the gather path
-    on the local neighbor table (JAX ``pos_operators``, use_pallas=False).
+    """PoS(+) operator features for one extracted batch (JAX
+    ``pos_operators``): by the gather path on the local neighbor table, or
+    with ``use_kernel`` through ``pos_power_rows`` in its local-slot mode
+    (the JAX ``use_pallas`` route).
 
     Returns (xs [B, K+1, R, F+1], row_mask [B, R]) with R = 2 + max_ccn.
     """
-    B, S = sub.nodes.shape
-    D = sub.nbr_local.shape[2]
-    dev = sub.nodes.device
-    nodes = sub.nodes.long()
-    mask_f = sub.node_mask[:, :, None].to(torch.float32)
-
-    x_sub = x_global[nodes] * mask_f  # [B, S, F]
-    ind = torch.zeros((B, S, 1), dtype=torch.float32, device=dev)
-    ind[:, :2] = 1.0
-    subg_x = torch.cat([ind, x_sub], dim=-1)  # [B, S, F+1]
+    sel_idx, nbr_local, nbr_w, subg_x, row_mask = local_kernel_inputs(
+        sub, x_global, max_ccn=max_ccn, strategy=strategy
+    )
+    if use_kernel:
+        xs = pos_power_rows(sel_idx, nbr_local, nbr_w, subg_x, sign_k=sign_k)
+        return xs * row_mask[:, None, :, None], row_mask
 
     # Sym-normalized edge weights (tuned_SIGN.py:155-161):
     # w'[i, d] = dinv[i] * w[i, d] * dinv[j(i, d)].
-    nbr_local = sub.nbr_local.long()
-    deg = sub.nbr_w.sum(dim=-1)
+    B, S, D = nbr_local.shape
+    R = sel_idx.shape[1]
+    dev = subg_x.device
+    nbr_local = nbr_local.long()
+    deg = nbr_w.sum(dim=-1)
     dinv = torch.where(
         deg > 0, 1.0 / torch.sqrt(torch.clamp(deg, min=1e-30)), torch.zeros_like(deg)
     )
     dinv_j = torch.gather(dinv, 1, nbr_local.reshape(B, S * D)).reshape(B, S, D)
-    w_norm = sub.nbr_w * dinv[:, :, None] * dinv_j
-
-    R = 2 + max_ccn
-    nbr0 = nbr1 = None
-    if max_ccn > 0:
-        slot = torch.arange(S, device=dev)
-        has_w = sub.nbr_w > 0
-        nbr0 = ((nbr_local[:, 0, :, None] == slot) & has_w[:, 0, :, None]).any(1)
-        nbr1 = ((nbr_local[:, 1, :, None] == slot) & has_w[:, 1, :, None]).any(1)
-    sel_idx, row_mask = _ccn_select(nbr0, nbr1, sub.node_mask, strategy, max_ccn, R)
+    w_norm = nbr_w * dinv[:, :, None] * dinv_j
 
     b_idx = torch.arange(B, device=dev)
     x0 = subg_x[b_idx[:, None], sel_idx.long()] * row_mask[:, :, None]
@@ -265,6 +291,50 @@ def measure_ccn_width(
     return width
 
 
+def padded_ccn_width(dg: DeviceGraph, links: np.ndarray, strategy: str, max_ccn: int) -> int:
+    """PoS+'s CCN row count for ``links``: the measured width (cap
+    ``max_ccn``, 16 where it is not positive), rounded up to a power of two
+    (capped) as the JAX package rounds it; the dataset's shape follows it."""
+    if max_ccn <= 0:
+        max_ccn = 16
+    eff_ccn = measure_ccn_width(dg, links, strategy, max_ccn)
+    if eff_ccn and max_ccn >= 8:
+        r = 8
+        while r < eff_ccn:
+            r *= 2
+        eff_ccn = min(max_ccn, r)
+    return eff_ccn
+
+
+def scaled_batch_plan(
+    dg: DeviceGraph,
+    num_links: int,
+    *,
+    rw_m: int,
+    rw_M: int,
+    seed: int,
+    eff_ccn: int,
+    buckets,
+    max_subgraph_nodes: int,
+    batch_size: int,
+) -> tuple[int, int, np.ndarray]:
+    """ScaLed's batching (JAX pos.py:104-109, 661): (bucket, links per
+    batch, link seeds [num_links] int32). A subgraph holds at most the
+    ``min(2·M·(m+1), N, max_subgraph_nodes)`` nodes its 2M walks can visit,
+    so every link takes that one bucket and no BFS sizing pass runs; link i's
+    walks are seeded by ``seed * 1_000_003 + i``."""
+    bound = min(2 * rw_M * (rw_m + 1), dg.num_nodes, max_subgraph_nodes)
+    bucket = pick_bucket(bound, _size_buckets(buckets, max_subgraph_nodes))
+    per_batch = batch_cap(bucket, int(dg.x.shape[1]), int(dg.nbr.shape[1]), eff_ccn, batch_size)
+    link_seeds = (np.int64(seed) * 1_000_003 + np.arange(num_links)).astype(np.int32)
+    return bucket, per_batch, link_seeds
+
+
+def _size_buckets(buckets, max_subgraph_nodes: int) -> list[int]:
+    """The size buckets in use: ``buckets`` and the cap, none above it."""
+    return [b for b in sorted(set(buckets) | {max_subgraph_nodes}) if b <= max_subgraph_nodes]
+
+
 def measure_subgraph_sizes(
     dg: DeviceGraph,
     links: np.ndarray,
@@ -299,13 +369,18 @@ def precompute_pos(
     buckets=(32, 64, 128, 256, 512, 1024),
     batch_size: int = 256,
     max_subgraph_nodes: int = 1024,
+    seed: int = 0,
+    rw_m: int = 0,
+    rw_M: int = 0,
     device="cuda",
 ) -> OperatorDataset:
     """Host driver: bucket links by subgraph size, run each batch on the
     device. ``dg`` must lie on ``device``.
 
-    The JAX package's ``seed`` (per-hop sampling) and ``size_oracle`` (the
-    host-extract route) are left out with the code that reads them.
+    ``rw_m`` and ``rw_M`` both > 0 select ScaLed's random-walk subgraphs
+    (``num_hops`` is then unused), batched by :func:`scaled_batch_plan`. The
+    JAX package's ``size_oracle`` (the host-extract route) is left out with
+    the code that reads it.
     """
     from s3grl_tpu_torch.utils.device import resolve_device
 
@@ -318,28 +393,8 @@ def precompute_pos(
         raise ValueError("PoS requires node features (reference parity)")
     L = links.shape[0]
     links = np.asarray(links, dtype=np.int32)
-    use_ccn = k_heuristic > 0
-    if use_ccn and max_ccn <= 0:
-        max_ccn = 16
     eff_ccn = (
-        measure_ccn_width(dg, links, k_node_set_strategy, max_ccn) if use_ccn else 0
-    )
-    if eff_ccn and max_ccn >= 8:
-        # The JAX package rounds the CCN row count up to a power of two
-        # (capped); the dataset's shape follows it.
-        r = 8
-        while r < eff_ccn:
-            r *= 2
-        eff_ccn = min(max_ccn, r)
-
-    buckets = [
-        b
-        for b in sorted(set(list(buckets) + [max_subgraph_nodes]))
-        if b <= max_subgraph_nodes
-    ]
-    sizes = measure_subgraph_sizes(
-        dg, links, num_hops=num_hops, ratio_per_hop=ratio_per_hop,
-        max_nodes_per_hop=max_nodes_per_hop, batch_size=max(batch_size, 512),
+        padded_ccn_width(dg, links, k_node_set_strategy, max_ccn) if k_heuristic > 0 else 0
     )
 
     D_tab = int(dg.nbr.shape[1])
@@ -379,6 +434,19 @@ def precompute_pos(
     )
     mask_all = torch.zeros((L, R_rows), dtype=torch.bool, device=store_dev)
 
+    buckets = _size_buckets(buckets, max_subgraph_nodes)
+    scaled = bool(rw_m and rw_M)
+    if scaled:
+        bucket, _, link_seeds = scaled_batch_plan(
+            dg, L, rw_m=rw_m, rw_M=rw_M, seed=seed, eff_ccn=eff_ccn, buckets=buckets,
+            max_subgraph_nodes=max_subgraph_nodes, batch_size=batch_size,
+        )
+        sizes = np.full(L, bucket, dtype=np.int32)
+    else:
+        sizes = measure_subgraph_sizes(
+            dg, links, num_hops=num_hops, ratio_per_hop=ratio_per_hop,
+            max_nodes_per_hop=max_nodes_per_hop, batch_size=max(batch_size, 512),
+        )
     order = np.argsort(sizes, kind="stable")
     bucket_of = np.array([pick_bucket(int(s), buckets) for s in sizes[order]])
     for bucket in np.unique(bucket_of):
@@ -387,14 +455,24 @@ def precompute_pos(
         for start in range(0, len(idx_all), bsz_cap):
             idx = idx_all[start : start + bsz_cap]
             lb = torch.as_tensor(links[idx], device=dev)
-            nodes, node_mask, _, _ = extract_node_sets(
-                dg, lb, num_hops=num_hops, max_nodes=int(bucket),
-                ratio_per_hop=ratio_per_hop, max_nodes_per_hop=max_nodes_per_hop,
-            )
-            xs, row_mask = pos_operators_global(
-                dg, lb, nodes, node_mask,
-                sign_k=sign_k, max_ccn=eff_ccn, strategy=k_node_set_strategy,
-            )
+            if scaled:
+                sub = extract_rw_subgraphs(
+                    dg, lb, torch.as_tensor(link_seeds[idx], device=dev),
+                    rw_m=rw_m, rw_M=rw_M, max_nodes=int(bucket),
+                )
+                xs, row_mask = pos_operators(
+                    sub, dg.x, sign_k=sign_k, max_ccn=eff_ccn,
+                    strategy=k_node_set_strategy, use_kernel=True,
+                )
+            else:
+                nodes, node_mask, _, _ = extract_node_sets(
+                    dg, lb, num_hops=num_hops, max_nodes=int(bucket),
+                    ratio_per_hop=ratio_per_hop, max_nodes_per_hop=max_nodes_per_hop,
+                )
+                xs, row_mask = pos_operators_global(
+                    dg, lb, nodes, node_mask,
+                    sign_k=sign_k, max_ccn=eff_ccn, strategy=k_node_set_strategy,
+                )
             idx_t = torch.as_tensor(idx, device=store_dev)
             xs_all[idx_t] = xs.to(device=store_dev, dtype=store_dtype)
             mask_all[idx_t] = row_mask.to(store_dev)

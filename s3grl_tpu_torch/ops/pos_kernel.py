@@ -245,7 +245,8 @@ def pos_power_rows(
     CPU tensors go to ``pos_power_rows_reference``. CUDA tensors launch the
     two kernels on the current stream (the selector kernel only when
     ``sign_k`` > 0); anything they do not take raises.
-    ``pos_power_rows.launches`` counts the calls that launch.
+    ``pos_power_rows.launches`` counts the calls that launch, and
+    ``pos_power_rows.local_launches`` those of them in local-slot mode.
     """
     dev = subg_x.device
     if dev.type == "cpu":
@@ -275,7 +276,10 @@ def pos_power_rows(
     )
     _raise_on(lib, err, "pos_power_rows X pass")
     pos_power_rows.launches += 1
+    if row_ids is None:
+        pos_power_rows.local_launches += 1
     return out
 
 
 pos_power_rows.launches = 0
+pos_power_rows.local_launches = 0  # the launches in local-slot mode (row_ids None)

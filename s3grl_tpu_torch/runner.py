@@ -15,7 +15,11 @@ Run from the command line with
 --optimize_sign --init_features degree --epochs 5 [--device cuda]``; SoP and
 hybrid also take ``--pool_operatorwise``; ``--optimize_sign false
 --node_label drnl`` runs the full-row flow; ``--model DGCNN --node_label
-drnl --hidden_channels 32 --num_hops 2`` a SEAL baseline.
+drnl --hidden_channels 32 --num_hops 2`` a SEAL baseline; ``--init_features
+n2v --n2v_dim 16`` trains node2vec features; ``--m 3 --M 20 --num_hops 0``
+extracts ScaLed's random-walk subgraphs (PoS, PoS+, hybrid);
+``--init_representation GAE|VGAE|ARGVA|SVGAE|GIC`` pretrains the features;
+``--use_heuristic CN|AA|PPR`` scores the split with a heuristic alone.
 """
 from __future__ import annotations
 
@@ -33,6 +37,8 @@ from s3grl_tpu_torch.data.features import init_features
 from s3grl_tpu_torch.data.graph import Graph, to_undirected
 from s3grl_tpu_torch.data.io import dataset_source_paths, load_dataset
 from s3grl_tpu_torch.data.split import EdgeSplit, do_edge_split, get_pos_neg_edges
+from s3grl_tpu_torch.heuristics import run_heuristic
+from s3grl_tpu_torch.models.init_representation import pretrain_representation
 from s3grl_tpu_torch.operators.common import OperatorDataset
 from s3grl_tpu_torch.operators.fullrow import precompute_pos_fullrow, precompute_sop_fullrow
 from s3grl_tpu_torch.operators.pos import precompute_pos
@@ -116,11 +122,6 @@ def precompute_split(
                 node_label=cfg.node_label, device=device,
             )
         return precompute_sop(dg, links, y, sign_k=cfg.sign_k, device=device)
-    if cfg.m or cfg.M:
-        raise NotImplementedError(
-            "ScaLed random-walk extraction (m, M) is not ported yet: it "
-            "waits for ROADMAP module item 9"
-        )
     kw = dict(
         num_hops=cfg.num_hops,
         sign_k=cfg.sign_k,
@@ -134,10 +135,16 @@ def precompute_split(
     if cfg.sign_type == "PoS" and not cfg.optimize_sign:
         # The whole subgraph is kept and node_label is live as the first
         # feature column (utils.py:497-531, 308-312).
+        if cfg.m or cfg.M:
+            raise NotImplementedError(
+                "ScaLed rw sampling with optimize_sign=False is not "
+                "supported; use the optimized flow for ScaLed"
+            )
         return precompute_pos_fullrow(
             dg, links, y, node_label=cfg.node_label,
             max_label_dist=cfg.max_label_dist, **kw,
         )
+    kw.update(seed=cfg.seed, rw_m=cfg.m, rw_M=cfg.M)
     if cfg.sign_type == "hybrid":
         pos_ds = precompute_pos(dg, links, y, **kw)
         if cfg.sign_k == 1:
@@ -157,10 +164,7 @@ def precompute_split(
 def _check_ported(cfg: RunConfig) -> None:
     """Raise for the parts of the run that the port does not have yet."""
     missing = [
-        (cfg.use_heuristic, "heuristics (use_heuristic) wait for ROADMAP module item 11"),
         (cfg.model == "WalkPool", "WalkPool waits for ROADMAP module item 12"),
-        (cfg.init_representation,
-         "init_representation waits for ROADMAP module item 11"),
         (cfg.profile, "profile (profiling.py) waits for ROADMAP module item 13"),
         (cfg.dataset.startswith("ogbl"), "OGB datasets wait for ROADMAP module item 13"),
     ]
@@ -188,6 +192,8 @@ def run_sgrl_learning(
     save_appendix = cfg.save_appendix
     if save_appendix == "":
         save_appendix = "_" + time.strftime("%Y%m%d%H%M%S") + f"_seed{cfg.seed}"
+        if cfg.m and cfg.M:
+            save_appendix += f"_m{cfg.m}_M{cfg.M}_dropedge{cfg.dropedge}_seed{cfg.seed}"
     res_dir = cfg.res_dir or os.path.join(
         cfg.results_dir, f"{cfg.dataset}{save_appendix}"
     )
@@ -216,7 +222,10 @@ def run_sgrl_learning(
     graph = init_features(
         graph, cfg.init_features, n2v_dim=cfg.n2v_dim, seed=cfg.seed,
         epochs=cfg.epochs, cache_key=cfg.dataset,
+        cache_root=os.path.join(cfg.results_dir, "emb_cache"), device=dev,
     )
+    if cfg.init_representation:
+        graph = pretrain_representation(graph, edge_split, cfg, device=dev)
     if cfg.use_valedges_as_input:
         # Validation positives join the observed graph (reference
         # sgrl_link_pred.py:1018-1028), after feature init.
@@ -229,6 +238,8 @@ def run_sgrl_learning(
             )
         graph = graph.with_edges(new_ei, new_w)
 
+    if cfg.use_heuristic:
+        return run_heuristic(graph, edge_split, cfg, device=dev)
     if cfg.model != "SIGN":  # the SEAL GNN baselines (DGCNN, GCN, SAGE, GIN)
         return run_gnn_learning(graph, edge_split, cfg, rng, device=dev)
 

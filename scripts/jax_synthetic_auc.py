@@ -3,7 +3,10 @@
 
     JAX_PLATFORMS=cpu python scripts/jax_synthetic_auc.py --seed 1 --epochs 5 \
         [--sign_type PoS|SoP|hybrid] [--model SIGN|DGCNN|GCN] \
-        [--node_label drnl|de|...] [--optimize_sign true|false]
+        [--node_label drnl|de|...] [--optimize_sign true|false] \
+        [--init_features n2v --n2v_dim 16] [--m 3 --M 20 --num_hops 0] \
+        [--k_heuristic 1] [--init_representation GAE|GIC|SVGAE] \
+        [--use_heuristic CN|AA|PPR]
 
 Runs ``s3grl_tpu.runner.run_sgrl_learning`` with one of ``chip_smoke.py``'s
 configs on ``tests/torch_port_helpers.usair_like_edges(seed)``, split as
@@ -17,7 +20,15 @@ configs on ``tests/torch_port_helpers.usair_like_edges(seed)``, split as
   (``chip_smoke.LABEL_PATHS["fullrow"]``), ``--node_label`` drnl by default;
 - ``--model DGCNN`` / ``--model GCN``: Table 2's USAir_SEAL and
   USAir_GCN_DE (``LABEL_PATHS["SEAL"]``, ``["GCN-DE"]``), with their labels
-  (drnl, de) unless ``--node_label`` says otherwise.
+  (drnl, de) unless ``--node_label`` says otherwise;
+- ``--init_features``/``--n2v_dim``, ``--m``/``--M``/``--num_hops``/
+  ``--k_heuristic``, ``--init_representation`` and ``--use_heuristic`` set
+  those fields over the bench run, for ``chip_smoke.INIT_PATHS``: node2vec
+  features, ScaLed walks (``--k_heuristic 1`` adds PoS+'s intersection CCN
+  rows pooled by mean, as configs/paper/scaled.json does), GAE/GIC/SVGAE
+  init representations and the CN/AA/PPR heuristics (whose AUC is the raw
+  one in [0, 1]). Every config that sets them pools operator-wise, so these
+  flags also set ``pool_operatorwise``.
 
 ``chip_smoke.py`` holds the printed AUC of each path in
 ``JAX_REFERENCE_AUC`` and fails when the torch port falls further below it
@@ -34,8 +45,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def config_fields(model: str, sign_type: str, node_label: str, optimize_sign: bool) -> dict:
-    """RunConfig fields of the chip_smoke.py path these flags name."""
+def config_fields(model: str, sign_type: str, node_label: str, optimize_sign: bool,
+                  extra: dict | None = None) -> dict:
+    """RunConfig fields of the chip_smoke.py path these flags name; ``extra``
+    holds the fields of the init, walk and heuristic flags that were given."""
     from chip_smoke import BENCH, LABEL_PATHS
 
     if model == "SIGN" and optimize_sign:
@@ -46,6 +59,10 @@ def config_fields(model: str, sign_type: str, node_label: str, optimize_sign: bo
         fields = {**BENCH, **LABEL_PATHS["SEAL" if model == "DGCNN" else "GCN-DE"]}
     if node_label:
         fields["node_label"] = node_label
+    if extra:
+        fields.update(extra, pool_operatorwise=True)
+        if extra.get("k_heuristic"):
+            fields.update(k_node_set_strategy="intersection", k_pool_strategy="mean")
     return fields
 
 
@@ -58,7 +75,18 @@ def main(argv=None) -> None:
     ap.add_argument("--node_label", default="",
                     help="overrides the path's label (drnl, de, de+, hop, zo, degree)")
     ap.add_argument("--optimize_sign", choices=("true", "false"), default="true")
+    ap.add_argument("--init_features", choices=("degree", "n2v"))
+    ap.add_argument("--n2v_dim", type=int)
+    ap.add_argument("--m", type=int, help="ScaLed walk length")
+    ap.add_argument("--M", type=int, help="ScaLed walks from each endpoint")
+    ap.add_argument("--num_hops", type=int)
+    ap.add_argument("--k_heuristic", type=int)
+    ap.add_argument("--init_representation", choices=("GAE", "VGAE", "ARGVA", "SVGAE", "GIC"))
+    ap.add_argument("--use_heuristic", choices=("CN", "AA", "PPR"))
     args = ap.parse_args(argv)
+    extra = {k: getattr(args, k) for k in (
+        "init_features", "n2v_dim", "m", "M", "num_hops", "k_heuristic",
+        "init_representation", "use_heuristic") if getattr(args, k) is not None}
 
     from s3grl_tpu.config import RunConfig
     from s3grl_tpu.data.graph import Graph
@@ -68,7 +96,7 @@ def main(argv=None) -> None:
     from tests.torch_port_helpers import usair_like_edges
 
     optimize = args.optimize_sign == "true"
-    fields = config_fields(args.model, args.sign_type, args.node_label, optimize)
+    fields = config_fields(args.model, args.sign_type, args.node_label, optimize, extra)
     if args.model == "SIGN" and not optimize:
         # The JAX full-row flow gathers [B, S, D, Z+F] per batch; 16 links a
         # batch keep that small on a CPU. Batching changes no output.
@@ -84,6 +112,8 @@ def main(argv=None) -> None:
         prep, best, _, _, _ = run_sgrl_learning(cfg, graph, split)
     what = (args.sign_type if args.model == "SIGN" and optimize
             else f"{args.model} {cfg.node_label}" + ("" if optimize else " full-row"))
+    if extra:
+        what += " " + " ".join(f"{k}={v}" for k, v in extra.items())
     print(f"{what} seed {args.seed} epochs {args.epochs}: best test AUC {best!r} "
           f"(prep {prep:.1f} s on {os.environ.get('JAX_PLATFORMS', 'default')})")
 

@@ -70,9 +70,15 @@ def test_init_features_bit_exact(kind):
 
 
 def test_init_features_n2v_names_its_roadmap_item():
+    """ROADMAP module item 9 ported the n2v route: node2vec features, then
+    the reference's re-normalization."""
+    from s3grl_tpu_torch.data.graph import normalize_features
+    from s3grl_tpu_torch.models.n2v import node2vec_pretrain
+
     _, tg = _graphs(usair_like_edges(2, n=40), 40)
-    with pytest.raises(NotImplementedError, match="node2vec"):
-        tfeat.init_features(tg, "n2v")
+    got = tfeat.init_features(tg, "n2v", n2v_dim=4, epochs=1, device="cpu")
+    want = node2vec_pretrain(tg, 4, epochs=1, seed=1, device="cpu")
+    np.testing.assert_array_equal(got.x, normalize_features(want))
 
 
 @pytest.mark.parametrize("max_degree", [None, 5])

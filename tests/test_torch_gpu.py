@@ -309,3 +309,99 @@ def test_run_gnn_learning_defaults_to_the_card(monkeypatch):
     _, best, _, _, _ = gnn_loop.run_gnn_learning(graph, split, cfg, rng)
     assert np.isfinite(best)
     assert all(p.is_cuda for p in built[0].parameters())
+
+
+# ---- Walks, ScaLed's local-slot kernel route, heuristics, vMF numerics ----
+
+
+@pytest.mark.gpu
+def test_hash_uniforms_and_walks_on_the_card_are_bit_exact():
+    from s3grl_tpu_torch.sampling.random_walk import hash_uniforms, rw_membership
+
+    dev = _cuda(CARD_VS_CPU)
+    seeds = torch.arange(-50, 4950, dtype=torch.int32)
+    u = hash_uniforms(seeds, 3, 40)
+    assert torch.equal(hash_uniforms(seeds.to(dev), 3, 40).cpu(), u)
+    dg, ei, x, links = _label_inputs()
+    dgc = _on(dev, ei, x)
+    ls = torch.arange(len(links), dtype=torch.int32) * 7 + 3
+    want = rw_membership(dg, links, ls, rw_m=3, rw_M=20)
+    got = rw_membership(dgc, links.to(dev), ls.to(dev), rw_m=3, rw_M=20)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_ccn,strategy", [(0, ""), (32, "intersection")])
+def test_scaled_operators_from_the_kernel_equal_the_plain_version(max_ccn, strategy):
+    from s3grl_tpu_torch.operators.pos import pos_operators
+    from s3grl_tpu_torch.sampling.random_walk import extract_rw_subgraphs
+
+    dev = _cuda()
+    dg, ei, x, links = _label_inputs(B=64)
+    dgc = _on(dev, ei, x)
+    ls = torch.arange(len(links), dtype=torch.int32)
+    sub = extract_rw_subgraphs(dgc, links.to(dev), ls.to(dev), rw_m=3, rw_M=20, max_nodes=256)
+    kw = dict(sign_k=3, max_ccn=max_ccn, strategy=strategy)
+    before = (pos_power_rows.launches, pos_power_rows.local_launches)
+    got, mask = pos_operators(sub, dgc.x, use_kernel=True, **kw)
+    torch.cuda.synchronize()
+    assert (pos_power_rows.launches, pos_power_rows.local_launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    want, want_mask = pos_operators(sub, dgc.x, **kw)  # the gather path on the card
+    assert torch.equal(mask, want_mask)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    cpu_sub = type(sub)(*(t.cpu() for t in sub))
+    on_cpu, _ = pos_operators(cpu_sub, dg.x, use_kernel=True, **kw)  # the plain version
+    np.testing.assert_allclose(got.cpu().numpy(), on_cpu.numpy(), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["CN", "AA", "PPR"])
+def test_heuristics_on_the_card_match_the_cpu(name):
+    from s3grl_tpu_torch.heuristics import HEURISTICS
+
+    dev = _cuda(CARD_VS_CPU)
+    dg, ei, x, links = _label_inputs(B=64)
+    want = HEURISTICS[name](dg, links)
+    got = HEURISTICS[name](_on(dev, ei, x), links.to(dev))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [9, 65, 129])
+def test_vmf_numerics_on_the_card_match_the_cpu(m):
+    from s3grl_tpu_torch.models.svgae import bessel_ratio, log_iv, vmf_kl
+
+    dev = _cuda(CARD_VS_CPU)
+    kappa = torch.tensor([0.5, 1.0, 5.0, 20.0, 80.0, 300.0, 650.0, 1000.0])
+    nu = m / 2.0 - 1.0
+    for fn in (lambda k: bessel_ratio(nu + 1.0, k), lambda k: log_iv(nu, k)):
+        np.testing.assert_allclose(fn(kappa.to(dev)).cpu().numpy(), fn(kappa).numpy(),
+                                   rtol=1e-5)
+    # tests/test_torch_initrep.py's bar for the KL, a sum of terms up to 130
+    # (4 float32 ulps there).
+    np.testing.assert_allclose(vmf_kl(kappa.to(dev), m).cpu().numpy(), vmf_kl(kappa, m).numpy(),
+                               rtol=1e-5, atol=6e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["GAE", "GIC", "SVGAE"])
+def test_init_representation_on_the_card_repeats(kind, monkeypatch):
+    """The pretraining runs with deterministic scatters: twice on the card,
+    the same features bit for bit."""
+    from s3grl_tpu_torch.config import RunConfig
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.data.split import do_edge_split
+    from s3grl_tpu_torch.models.init_representation import pretrain_representation
+    from s3grl_tpu_torch.utils.seeding import seed_everything
+    from torch_port_helpers import usair_like_edges
+
+    dev = _cuda("it runs the pretraining on the card")
+    monkeypatch.setenv("S3GRL_TPU_SVGAE_EPOCHS", "30")
+    rng, _ = seed_everything(1)
+    graph, split = do_edge_split(Graph(num_nodes=332, edge_index=usair_like_edges(1)), rng=rng)
+    cfg = RunConfig(init_representation=kind, hidden_channels=64, epochs=5, lr=1e-2)
+    a, b = (pretrain_representation(graph, split, cfg, device=dev).x for _ in range(2))
+    assert np.isfinite(a).all()
+    np.testing.assert_array_equal(a, b)
+    assert not torch.are_deterministic_algorithms_enabled()

@@ -35,7 +35,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "s3grl_tpu_torch.runner" in mods and "s3grl_tpu_torch.ops.pos_kernel" in mods
     assert "s3grl_tpu_torch.operators.sop" in mods and "s3grl_tpu_torch.ops.spmm_kernel" in mods
     for m in ("sampling.labeling", "operators.fullrow", "models.gnn", "train.gnn_loop",
-              "runner_utils"):
+              "runner_utils", "models.n2v", "sampling.random_walk", "heuristics",
+              "models.gae", "models.svgae", "models.gic", "models.init_representation"):
         assert f"s3grl_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -65,6 +66,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from s3grl_tpu_torch.operators.fullrow import precompute_pos_fullrow, precompute_sop_fullrow
     from s3grl_tpu_torch.runner import main, run_sgrl_learning
     from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from s3grl_tpu_torch.data.features import init_features
+    from s3grl_tpu_torch.heuristics import heuristic_scores
+    from s3grl_tpu_torch.models.gae import run_gae
+    from s3grl_tpu_torch.models.gic import run_gic
+    from s3grl_tpu_torch.models.n2v import node2vec_pretrain
+    from s3grl_tpu_torch.models.svgae import run_svgae
     from s3grl_tpu_torch.train.gnn_loop import run_gnn_learning
     from s3grl_tpu_torch.train.loop import fit_signnet
 
@@ -95,6 +102,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: main(["--model", "DGCNN", "--node_label", "drnl"]),
         lambda: main(["--sign_type", "PoS", "--optimize_sign", "false", "--node_label",
                       "drnl", "--init_features", "degree"]),
+        lambda: node2vec_pretrain(g),
+        lambda: init_features(g, "n2v"),
+        lambda: heuristic_scores(g, np.zeros((2, 2), np.int32), "CN"),
+        lambda: run_gae(g, g.edge_index, ()),
+        lambda: run_svgae(g, g.edge_index, ()),
+        lambda: run_gic(g, g.edge_index, ()),
+        lambda: main(["--use_heuristic", "PPR"]),
+        lambda: main(["--init_representation", "GAE", "--init_features", "degree"]),
+        lambda: main(["--m", "3", "--M", "20", "--num_hops", "0", "--init_features", "degree",
+                      "--sign_type", "PoS", "--optimize_sign"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
