@@ -15,9 +15,10 @@ non-zero without the final line:
    its time by CUDA events, the plain version's time and the least time
    the card could take; for ``pos_power_rows`` also its selector phase
    against its plain version and alone (and at K = 0: the table pass), and
-   the resolved neighbor entries; ``bsr_spmm`` also on a Cora-shaped random
-   graph, with the edge-list route's time and one ``torch.sparse.mm`` as a
-   yardstick;
+   the resolved neighbor entries; ``bsr_spmm`` on the SoP chain, on SoP's
+   first batch of one-hot endpoint columns (C = 2B = 8,192) and on a
+   Cora-shaped random graph, with the edge-list route's time and one
+   ``torch.sparse.mm`` as a yardstick;
 4. end to end: ``run_sgrl_learning`` on a synthetic USAir-shaped graph
    with the bench.py config (USAir, sign_k 3, 2 hops, degree features,
    hidden 256, batch 32, lr 1e-4), 5 epochs, seed 1, once per sign type
@@ -36,12 +37,29 @@ non-zero without the final line:
    first batch), GAE-, GIC- and SVGAE-initialized PoS, and CN, AA, PPR;
    each one's prep, train rate, peak memory, kernel launches and best test
    AUC against the JAX package's;
-7. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
-   by ``torch.profiler``, on inputs built again; then one profiled
-   1-epoch run of each path of ``IDLE_PATHS`` (one of each kind: a label
-   path, a ScaLed path, an init path, a heuristic) for its device idle
-   share. It comes last, so that no profiler session has run in the
-   process while the paths are timed.
+7. repeat: each path of ``REPEAT_PATHS`` (SoP, hybrid, SEAL, PoS-n2v)
+   twice at ``REPEAT_EPOCHS`` epochs; the two best test AUCs, printed, must
+   be equal to the last bit;
+8. WalkPool: configs/paper/walkpool.json's USAir_WalkPool at its widths
+   (S = 512 on this graph), cut in links and epochs only (``WALKPOOL``);
+   prep, train rate, peak memory and best test AUC against the JAX
+   package's;
+9. baselines: MF, the GCN/SAGE/GIN link predictors and node2vec with a
+   logistic regression (``BASELINES``), each over seeds 1-3 on the seed's
+   own graph; the mean best test AUC against the JAX package's mean;
+10. tooling: the checkpoint flags on the PoS path (save, resume,
+    ``only_test``, ``test_multiple_models``, each score equal to the saving
+    run's), the ``profile`` route's stats JSON with the card's memory, and
+    an OGB run (a synthetic ogbl-collab directory, PoS, Hits@50);
+11. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
+    by ``torch.profiler``, on inputs built again; then one profiled
+    1-epoch run of each path of ``IDLE_PATHS`` (one of each kind: a label
+    path, a ScaLed path, an init path, a heuristic, WalkPool) for its
+    device idle share. It comes last, so that no profiler session has run
+    in the process while the paths are timed.
+
+Every kernel count is set to 0 just before each path and read just after;
+the kernels line gives each kernel's launches on every path.
 
 Imports nothing of JAX or the JAX package. Exits 2 when CUDA is missing.
 """
@@ -74,6 +92,7 @@ EPOCHS = 5
 #   ... --m 3 --M 20 --num_hops 0 [--k_heuristic 1]           (ScaLed[-Plus])
 #   ... --num_hops 3 --init_representation GAE|GIC|SVGAE      (*-init)
 #   ... --use_heuristic CN|AA|PPR                             (a raw AUC in [0, 1])
+#   ... --model WalkPool                                      (WALKPOOL's cut)
 JAX_REFERENCE_AUC = {
     "PoS": 77.23776146708104,
     "SoP": 76.65145804403888,
@@ -90,6 +109,7 @@ JAX_REFERENCE_AUC = {
     "CN": 0.8980581454296986,
     "AA": 0.917410566686504,
     "PPR": 0.799466596133924,
+    "WalkPool": 92.15323238334545,
 }
 AUC_SLACK = 3.0  # the port may fall at most 0.03 below it
 # A label path's slack is the larger of AUC_SLACK and the spread (max - min)
@@ -99,8 +119,10 @@ AUC_SLACK = 3.0  # the port may fall at most 0.03 below it
 # 82.5762 / 76.5569 / 80.5878, ScaLed 76.5192 / 72.8513 / 68.9143,
 # ScaLed-Plus 90.9013 / 88.6409 / 87.5229, GAE-init 83.3984 / 79.5200 /
 # 78.2579, GIC-init 81.0311 / 79.9655 / 77.0941, SVGAE-init 83.6254 /
-# 80.3695 / 83.1055.
+# 80.3695 / 83.1055. WalkPool (--model WalkPool, WALKPOOL's cut): 92.1532 /
+# 92.1696 / 91.6215.
 JAX_AUC_RANGE = {"SEAL": 2.4578466955183416, "GCN-DE": 5.781168192427586,
+                 "WalkPool": 0.54808280199144,
                  "fullrow": 10.44373237128417, "PoS-n2v": 6.019303891107455,
                  "ScaLed": 7.6048934908669565, "ScaLed-Plus": 3.3783484351946385,
                  "GAE-init": 5.140429248978563, "GIC-init": 3.937031180164695,
@@ -163,11 +185,54 @@ INIT_PATHS = {
     "AA": dict(use_heuristic="AA"),
     "PPR": dict(use_heuristic="PPR"),
 }
+# configs/paper/walkpool.json's USAir_WalkPool at its widths (hidden 32,
+# 2 heads, walk length 7, 2 hops, DRNL, no node features, batch 32, lr 5e-5;
+# S = 512 on this graph), cut in links and epochs only: 10 % of the train
+# links, every valid and test link, EPOCHS epochs. The JAX package takes
+# about 15 minutes on a CPU for that cut.
+WALKPOOL = dict(
+    model="WalkPool", node_label="drnl", init_features="", use_feature=False,
+    hidden_channels=32, num_hops=2, batch_size=32, lr=5e-5, dropout=0.5,
+    train_percent=10.0, val_percent=100.0, test_percent=100.0,
+)
+# The non-subgraph baselines at tests/test_models_extra.py:79-96's settings
+# (hidden 32, lr 0.01; MF 10 epochs, GNN 15 epochs), node2vec + logistic
+# regression with n2v_dim 32 and 10 node2vec epochs: keyword arguments of
+# models/baselines.py's train_mf, train_gnn and run_n2v.
+BASELINES = {
+    "MF": ("mf", dict(hidden_channels=32, epochs=10, lr=0.01)),
+    "GNN-GCN": ("gnn", dict(layer="GCN", hidden_channels=32, epochs=15, lr=0.01)),
+    "GNN-SAGE": ("gnn", dict(layer="SAGE", hidden_channels=32, epochs=15, lr=0.01)),
+    "GNN-GIN": ("gnn", dict(layer="GIN", hidden_channels=32, epochs=15, lr=0.01)),
+    "n2v": ("n2v", dict(hidden_channels=32, epochs=10, lr=0.01)),
+}
 SCALED_PATHS = ("ScaLed", "ScaLed-Plus")
+# The paths whose seeded runs did not repeat on the card before they added
+# in a fixed order (ROADMAP §3 item 1): RunConfig fields over BENCH, run
+# twice at REPEAT_EPOCHS epochs.
+REPEAT_PATHS = {"SoP": dict(sign_type="SoP", pool_operatorwise=True),
+                "hybrid": dict(sign_type="hybrid", pool_operatorwise=True),
+                "SEAL": TABLE_2, "PoS-n2v": INIT_PATHS["PoS-n2v"]}
+REPEAT_EPOCHS = 2
+BASELINE_SEEDS = (1, 2, 3)
+# The JAX package's best test AUC of each of BASELINES over seeds 1-3, each
+# on usair_like_edges(seed) split by that seed, from
+#   JAX_PLATFORMS=cpu python scripts/jax_synthetic_auc.py --seed S \
+#       --baseline mf|gnn-GCN|gnn-SAGE|gnn-GIN|n2v
+# The port is held by its mean over the same seeds: the two packages draw
+# weights, dropout and negatives from different generators.
+JAX_BASELINE_AUC = {
+    "MF": (54.16914633339945, 53.86714996942964, 48.491134596908026),
+    "GNN-GCN": (73.514955145584, 72.8273211634204, 68.25923661455148),
+    "GNN-SAGE": (66.10460887390069, 59.920080356363, 58.8391999301249),
+    "GNN-GIN": (67.99356388723578, 67.37269630535417, 64.76984889510001),
+    "n2v": (55.16431924882629, 57.476635514018696, 58.177570093457945),
+}
+JAX_AUC_RANGE.update({k: max(v) - min(v) for k, v in JAX_BASELINE_AUC.items()})
 # The paths profiled for their idle share, one of each kind; every path of
 # LABEL_PATHS and INIT_PATHS read 0.90-0.98 when all were profiled, and
 # the profiler's own cost grows with the device events (0.5 ms each).
-IDLE_PATHS = ("SEAL", "ScaLed", "GAE-init", "PPR")
+IDLE_PATHS = ("SEAL", "ScaLed", "GAE-init", "PPR", "WalkPool")
 
 
 def bench_config(seed: int, epochs: int, results_dir: str):
@@ -489,7 +554,7 @@ def bsr_case(label, src, dst, n, x, power_k=0):
     edge-list route and one ``torch.sparse.mm`` of M in CSR form."""
     import torch
 
-    from s3grl_tpu_torch.ops.spmm import spmm
+    from s3grl_tpu_torch.ops.spmm import edge_list, spmm
     from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm, bsr_spmm_reference, power_chain
 
     adj, (s_t, d_t, w_t), m_csr = bsr_inputs(src, dst, n)
@@ -517,7 +582,8 @@ def bsr_case(label, src, dst, n, x, power_k=0):
 
     ms = cuda_ms(lambda: bsr_spmm(adj, x), reps=20)
     plain_ms = cuda_ms(lambda: bsr_spmm_reference(adj, x), reps=3)
-    edge_ms = cuda_ms(lambda: spmm(s_t, d_t, w_t, x, n), reps=20)
+    edges = edge_list(s_t, d_t, w_t, n)
+    edge_ms = cuda_ms(lambda: spmm(edges, x), reps=20)
     library_ms = cuda_ms(lambda: torch.sparse.mm(m_csr, x), reps=20)
 
     # The bound is the least the function Y = M X needs: the nonzeros (value
@@ -544,12 +610,31 @@ def bsr_case(label, src, dst, n, x, power_k=0):
                 bound_ms_dense_blocks=dense_ms, shape=f"{label} N={n} C={c} NB={nb} nnz={nnz}")
 
 
-def bsr_shapes(cfg, graph):
-    """(label, src, dst, n, x, power_k) of ``bsr_spmm``'s two shapes: the
-    main path's (the SoP chain of the split graph with its degree features:
-    one product and the K-step chain) and a Cora-shaped random graph with
-    random X, where the kernel is forced (the selector takes the edge list
-    there)."""
+def sop_batch_columns(cfg, graph, split):
+    """X of SoP's per-batch propagation on the main path: the one-hot
+    endpoint columns [N, 2B] of the first batch of train links (positives
+    then negatives, B as ``precompute_sop`` picks it), as ``_sop_batch``
+    builds them before its first ``bsr_spmm``."""
+    import torch
+
+    from s3grl_tpu_torch.operators.sop import sop_batch_size
+    from s3grl_tpu_torch.runner import build_split_links
+
+    links, _ = build_split_links("train", split, cfg.train_percent, np.random.default_rng(SEED))
+    B = min(len(links), sop_batch_size(graph.num_nodes, int(graph.edge_index.shape[1])))
+    ends = torch.as_tensor(links[:B].astype(np.int64).reshape(-1), device="cuda")
+    R = torch.zeros((graph.num_nodes, 2 * B), dtype=torch.float32, device="cuda")
+    R[ends, torch.arange(2 * B, device="cuda")] = 1.0
+    return R
+
+
+def bsr_shapes(cfg, graph, split):
+    """(label, src, dst, n, x, power_k) of ``bsr_spmm``'s three shapes: the
+    main path's two (the SoP chain of the split graph with its degree
+    features: one product and the K-step chain; SoP's per-batch
+    propagation of the first batch's one-hot endpoint columns) and a
+    Cora-shaped random graph with random X, where the kernel is forced (the
+    selector takes the edge list there)."""
     import torch
 
     from s3grl_tpu_torch.data.features import init_features
@@ -562,19 +647,22 @@ def bsr_shapes(cfg, graph):
     xc = torch.as_tensor(rng.normal(size=(2708, 1433)).astype(np.float32), device="cuda")
     return [("main path (SoP chain)", g.edge_index[0], g.edge_index[1], g.num_nodes, x,
              cfg.sign_k),
+            ("main path (SoP batch, one-hot endpoint columns)", g.edge_index[0],
+             g.edge_index[1], g.num_nodes, sop_batch_columns(cfg, graph, split), 0),
             ("Cora-shaped random graph (forced)", ei[0], ei[1], 2708, xc, 0)]
 
 
-def phase_bsr_kernel(cfg, graph, power_limit: str):
-    """``bsr_spmm`` at both of :func:`bsr_shapes`; returns their rows."""
+def phase_bsr_kernel(cfg, graph, split, power_limit: str):
+    """``bsr_spmm`` at each of :func:`bsr_shapes`; returns their rows."""
     from s3grl_tpu_torch.ops.spmm_kernel import should_use_bsr
 
     print(f"bsr_spmm kernel phase: card {power_limit}")
-    shapes = bsr_shapes(cfg, graph)
-    picks = [should_use_bsr(src, dst, n, x.shape[1]) for _, src, dst, n, x, _ in shapes]
-    if not picks[0]:
+    shapes = bsr_shapes(cfg, graph, split)
+    (_, src, dst, n, x, _), cora = shapes[0], shapes[-1]
+    if not should_use_bsr(src, dst, n, x.shape[1]):
         raise AssertionError("the selector does not pick bsr_spmm on the main path")
-    print(f"  selector on the Cora shape: {'bsr' if picks[1] else 'edge list'}")
+    pick = should_use_bsr(*cora[1:4], cora[4].shape[1])
+    print(f"  selector on the Cora shape: {'bsr' if pick else 'edge list'}")
     return [bsr_case(*shape[:5], power_k=shape[5]) for shape in shapes]
 
 
@@ -596,7 +684,7 @@ def phase_device_times(cfg, graph, split, rows, bsr_rows, power_limit: str) -> N
         print(f"  pos_power_rows {label}: {fmt_device(dev)}; the two kernels "
               f"{r['device_ms']:.4f} ms, share of bound {r['bound_ms'] / r['device_ms']:.3f}")
     del cases
-    for (label, src, dst, n, x, _), r in zip(bsr_shapes(cfg, graph), bsr_rows):
+    for (label, src, dst, n, x, _), r in zip(bsr_shapes(cfg, graph, split), bsr_rows):
         adj, _, m_csr = bsr_inputs(src, dst, n)
         dev = device_ms_by_kernel(lambda: bsr_spmm(adj, x), reps=20)
         lib_dev = device_ms_by_kernel(lambda: torch.sparse.mm(m_csr, x), reps=20)
@@ -667,8 +755,8 @@ def run_path(cfg, graph, split, n_links, sign_type, kernels):
         if launches[name] == 0:
             raise AssertionError(f"the {sign_type} path never launched {name}")
     if "bsr_spmm" in kernels:
-        print(f"  bsr_spmm launches {launches['bsr_spmm']} "
-              f"(expected 3 splits x K = {3 * cfg.sign_k})")
+        print(f"  bsr_spmm launches {launches['bsr_spmm']} (K = {cfg.sign_k} for each "
+              f"split's chain and K for each batch of links of a split)")
     if not np.isfinite(best):
         raise AssertionError(f"{sign_type} best test AUC is not finite: {best}")
     ref = JAX_REFERENCE_AUC[sign_type]
@@ -820,6 +908,247 @@ def phase_init_paths(cfg, graph, split) -> dict:
     return rows
 
 
+WRAPPERS = ("pos_power_rows", "bsr_spmm")
+
+
+def kernel_counts() -> dict:
+    """Each kernel wrapper's launch count."""
+    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
+    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm
+
+    return {"pos_power_rows": pos_power_rows.launches, "bsr_spmm": bsr_spmm.launches}
+
+
+def zero_counts() -> None:
+    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
+    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm
+
+    pos_power_rows.launches = bsr_spmm.launches = 0
+
+
+def phase_repeat(cfg, graph, split) -> dict:
+    """Each path of REPEAT_PATHS twice, REPEAT_EPOCHS epochs, seed 1, each
+    run in a results dir of its own (so node2vec trains anew): the two best
+    test AUCs must be equal. Returns each path's launches (both runs)."""
+    import dataclasses
+
+    import torch
+
+    from s3grl_tpu_torch.runner import run_sgrl_learning
+
+    rows = {}
+    for name, fields in REPEAT_PATHS.items():
+        zero_counts()
+        best = []
+        for i in range(2):
+            c = dataclasses.replace(cfg, **fields, epochs=REPEAT_EPOCHS, results_dir=os.path.join(
+                cfg.results_dir, "repeat", f"{name}-{i}"))
+            best.append(run_sgrl_learning(c, graph, split, device="cuda")[1])
+        torch.cuda.synchronize()
+        rows[name] = kernel_counts()
+        print(f"repeat {name} ({REPEAT_EPOCHS} epochs, seed {cfg.seed}): best test AUC "
+              f"{best[0]!r} / {best[1]!r}, launches {rows[name]}")
+        if not np.isfinite(best[0]) or best[0] != best[1]:
+            raise AssertionError(f"two seeded {name} runs gave {best[0]!r} and {best[1]!r}")
+    return rows
+
+
+def phase_walkpool(cfg, graph, split) -> dict:
+    """configs/paper/walkpool.json's USAir_WalkPool at its widths, cut as
+    WALKPOOL says, EPOCHS epochs: prep, train rate, peak memory and the best
+    test AUC against the JAX package's on the same cut."""
+    import dataclasses
+
+    import torch
+
+    from s3grl_tpu_torch.runner import run_sgrl_learning
+
+    c = dataclasses.replace(cfg, **WALKPOOL)
+    n = {s: len(lk) for s, lk in split_links(c, split).items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    prep, best, train_times, inf_times, n_params = run_sgrl_learning(c, graph, split,
+                                                                     device="cuda")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    train_s = sum(train_times)
+    rate = c.epochs * n["train"] / train_s
+    steps = -(-n["train"] // c.batch_size)
+    print(f"e2e WalkPool: hidden {c.hidden_channels}, 2 heads, walk length 7, {c.num_hops} "
+          f"hops, {c.node_label}, links {n}; prep {prep:.3f} s, train {rate:.1f} links/s "
+          f"({c.epochs} epochs x {steps} steps in {train_s:.3f} s, "
+          f"{1e3 * train_s / (c.epochs * steps):.2f} ms a step), inference "
+          f"{sum(inf_times):.3f} s, best test AUC {best:.4f}, params {n_params}, launches "
+          f"{kernel_counts()}, max_memory_allocated {peak:.1f} MiB")
+    check_auc("WalkPool", best)
+    return dict(prep_s=prep, train_links_per_s=rate, peak_mib=peak, auc=best)
+
+
+def check_auc(name: str, best: float, ref: float | None = None) -> None:
+    """Fail where ``best`` is not finite or is more than the path's slack
+    (the larger of AUC_SLACK and the JAX spread over seeds 1-3) below the
+    JAX package's AUC."""
+    if not np.isfinite(best):
+        raise AssertionError(f"{name} best test AUC is not finite: {best}")
+    ref = JAX_REFERENCE_AUC[name] if ref is None else ref
+    slack = max(AUC_SLACK, JAX_AUC_RANGE.get(name, 0.0))
+    if best < ref - slack:
+        raise AssertionError(f"{name} best test AUC {best:.4f} is more than {slack / 100} below "
+                             f"the JAX package's {ref:.4f} on the same graph and config")
+    print(f"AUC check {name}: {best:.4f} vs JAX {ref:.4f} (slack {slack})")
+
+
+def phase_baselines() -> dict:
+    """Each of BASELINES over seeds 1-3, each seed on its own synthetic
+    graph and split (as scripts/jax_synthetic_auc.py --baseline makes them):
+    the mean best test AUC against the JAX package's mean."""
+    import torch
+
+    from s3grl_tpu_torch.config import RunConfig
+    from s3grl_tpu_torch.models import baselines
+
+    fns = {"mf": baselines.train_mf, "gnn": baselines.train_gnn, "n2v": baselines.run_n2v}
+    rows = {}
+    for name, (kind, kwargs) in BASELINES.items():
+        aucs, secs = [], []
+        zero_counts()
+        for seed in BASELINE_SEEDS:
+            graph, split = split_graph(RunConfig(seed=seed))
+            t0 = time.perf_counter()
+            out = fns[kind](graph, split, seed=seed, device="cuda", **kwargs)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            aucs.append(out if kind == "n2v" else out[0])
+        print(f"baseline {name} {kwargs}: best test AUC {aucs} (mean {np.mean(aucs):.4f}), "
+              f"wall {[round(t, 3) for t in secs]} s, launches {kernel_counts()}")
+        check_auc(name, float(np.mean(aucs)), ref=float(np.mean(JAX_BASELINE_AUC[name])))
+        rows[name] = dict(aucs=aucs, wall_s=secs)
+    return rows
+
+
+class FitRecorder:
+    """Wraps the runner's ``fit_signnet`` to keep the last run's per-epoch
+    results (the runner returns only the best one)."""
+
+    def __init__(self):
+        from s3grl_tpu_torch import runner
+
+        self.runner, self.real, self.last = runner, runner.fit_signnet, None
+
+    def __enter__(self):
+        def fit(*a, **kw):
+            self.last = self.real(*a, **kw)
+            return self.last
+
+        self.runner.fit_signnet = fit
+        return self
+
+    def __exit__(self, *exc):
+        self.runner.fit_signnet = self.real
+
+
+def phase_checkpoints(cfg, graph, split) -> dict:
+    """The checkpoint flags on the PoS path at 2 epochs: save every epoch;
+    resume from epoch 2 for a third; only_test scores epoch 2's checkpoint
+    as the saving run scored it; test_multiple_models gives one row per
+    file, each equal to the epoch's own."""
+    import dataclasses
+
+    from s3grl_tpu_torch.runner import run_sgrl_learning
+    from s3grl_tpu_torch.train.checkpoint import saved_epochs
+
+    res_dir = os.path.join(cfg.results_dir, "checkpoints")
+    base = dataclasses.replace(cfg, res_dir=res_dir, epochs=2)
+    zero_counts()
+    rows = {}
+    with FitRecorder() as rec:
+        for label, fields in (("save", dict(checkpoint_training=True)),
+                              ("resume", dict(checkpoint_training=True, continue_from=2,
+                                              epochs=3)),
+                              ("only_test", dict(only_test=True, continue_from=2)),
+                              ("test_multiple_models", dict(test_multiple_models=True))):
+            run_sgrl_learning(dataclasses.replace(base, **fields), graph, split, device="cuda")
+            fit = rec.last
+            rows[label] = ([r["AUC"][1] for r, _ in fit.results_per_epoch], len(fit.train_times))
+            print(f"checkpoint {label}: test AUC by scored epoch {rows[label][0]}, "
+                  f"{rows[label][1]} epoch(s) trained, files {saved_epochs(res_dir, 1)}")
+    (saved, _), (resumed, n_resumed) = rows["save"], rows["resume"]
+    if n_resumed != 1 or saved_epochs(res_dir, 1) != [1, 2, 3]:
+        raise AssertionError("the resumed run did not train the one epoch left")
+    if rows["only_test"][0] != [saved[1]]:
+        raise AssertionError(f"only_test gave {rows['only_test'][0]}, epoch 2 scored {saved[1]}")
+    if rows["test_multiple_models"][0] != saved + resumed:
+        raise AssertionError(f"test_multiple_models gave {rows['test_multiple_models'][0]}, "
+                             f"the epochs scored {saved + resumed}")
+    counts = kernel_counts()
+    print(f"checkpoint route: launches {counts}")
+    return counts
+
+
+def phase_profile(cfg, graph, split) -> dict:
+    """The runner's profile route on the PoS path, 1 epoch: the stats JSON
+    it writes, with the card's memory."""
+    import dataclasses
+
+    from s3grl_tpu_torch.runner import run_sgrl_learning
+
+    c = dataclasses.replace(cfg, profile=True, epochs=1, save_appendix="_smoke")
+    zero_counts()
+    run_sgrl_learning(c, graph, split, device="cuda")
+    path = os.path.join(c.results_dir, "stats", f"stats_SIGN_USAir__smoke_seed_{c.seed}.json")
+    with open(path) as f:
+        stats = json.load(f)
+    mem = stats["device_memory"]
+    print(f"profile: {os.path.relpath(path, c.results_dir)}: {json.dumps(stats)}")
+    if not mem["max_allocated_mb"] > 0 or not stats["num_parameters"] > 0:
+        raise AssertionError(f"the profile stats hold no card memory: {mem}")
+    return kernel_counts()
+
+
+def write_ogb_dir(root: str, graph, split) -> None:
+    """The synthetic graph's split as a downloaded ogbl-collab directory:
+    the observed edges in raw/edge.csv.gz, the split dicts of tensors in
+    split/time/*.pt (valid and test with their negatives)."""
+    import gzip
+
+    import torch
+
+    raw = os.path.join(root, "ogbl_collab", "raw")
+    sp = os.path.join(root, "ogbl_collab", "split", "time")
+    os.makedirs(raw)
+    os.makedirs(sp)
+    ei = graph.edge_index
+    with gzip.open(os.path.join(raw, "edge.csv.gz"), "wt") as f:
+        f.write("".join(f"{u},{v}\n" for u, v in ei.T if u < v))
+    with gzip.open(os.path.join(raw, "num-node-list.csv.gz"), "wt") as f:
+        f.write(f"{graph.num_nodes}\n")
+    for s in ("train", "valid", "test"):
+        d = {"edge": torch.as_tensor(getattr(split, f"{s}_pos").astype(np.int64))}
+        if s != "train":
+            d["edge_neg"] = torch.as_tensor(getattr(split, f"{s}_neg").astype(np.int64))
+        torch.save(d, os.path.join(sp, f"{s}.pt"))
+
+
+def phase_ogb(cfg, graph, split) -> dict:
+    """The runner's OGB route: a synthetic ogbl-collab directory written
+    under the results dir, read by the runner, PoS, scored by Hits@50."""
+    import dataclasses
+
+    from s3grl_tpu_torch.runner import run_sgrl_learning
+
+    root = os.path.join(cfg.results_dir, "ogb")
+    write_ogb_dir(root, graph, split)
+    c = dataclasses.replace(cfg, dataset="ogbl-collab", data_root=root, epochs=2)
+    zero_counts()
+    prep, best, _, _, _ = run_sgrl_learning(c, device="cuda")
+    counts = kernel_counts()
+    print(f"ogb: ogbl-collab layout, PoS, 2 epochs: prep {prep:.3f} s, best test Hits@50 "
+          f"{best:.4f}, launches {counts}")
+    if not 0.0 <= best <= 100.0 or counts["pos_power_rows"] == 0:
+        raise AssertionError(f"the OGB run gave Hits@50 {best} with launches {counts}")
+    return counts
+
+
 def phase_idle(cfg, graph, split, power_limit: str) -> None:
     """The device's idle share of each path of IDLE_PATHS: one 1-epoch run
     under ``torch.profiler`` (prep and eval included), 1 - busy / wall."""
@@ -831,7 +1160,7 @@ def phase_idle(cfg, graph, split, power_limit: str) -> None:
     from s3grl_tpu_torch.runner import run_sgrl_learning
 
     print(f"idle share (torch.profiler, 1 epoch each): card {power_limit}")
-    paths = {**LABEL_PATHS, **INIT_PATHS}
+    paths = {**LABEL_PATHS, **INIT_PATHS, "WalkPool": WALKPOOL}
     for name in IDLE_PATHS:
         c = dataclasses.replace(cfg, **paths[name], epochs=1)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -875,13 +1204,19 @@ def main(argv=None) -> int:
     timed("build", phase_build)
     graph, split = split_graph(cfg)
     rows = timed("kernels", phase_kernels, cfg, graph, split, power_limit)
-    bsr_rows = timed("bsr_spmm", phase_bsr_kernel, cfg, graph, power_limit)
+    bsr_rows = timed("bsr_spmm", phase_bsr_kernel, cfg, graph, split, power_limit)
     launches, hist = timed("e2e", phase_end_to_end, cfg, graph, split)
     timed("label paths", phase_label_paths, cfg, graph, split)
     init_rows = timed("init paths", phase_init_paths, cfg, graph, split)
+    repeat = timed("repeat", phase_repeat, cfg, graph, split)
+    timed("WalkPool", phase_walkpool, cfg, graph, split)
+    timed("baselines", phase_baselines)
+    tooling = {"checkpoints": timed("checkpoints", phase_checkpoints, cfg, graph, split),
+               "profile": timed("profile", phase_profile, cfg, graph, split),
+               "OGB": timed("OGB", phase_ogb, cfg, graph, split)}
     timed("device times", phase_device_times, cfg, graph, split, rows, bsr_rows, power_limit)
     timed("idle", phase_idle, cfg, graph, split, power_limit)
-    bsr_main = bsr_rows[0]
+    bsr_main, bsr_batch = bsr_rows[0], bsr_rows[1]
 
     # pos_power_rows reports the global-id shape of the bucket that took
     # the most links on the PoS path; bsr_spmm the SoP chain's one product.
@@ -891,8 +1226,10 @@ def main(argv=None) -> int:
                  next(k for k in rows if k.startswith("global S=512 ")))
     r = rows[label]
     by_path = {name: {**{t: launches[t][name] for t in launches},
-                      **{t: r["launches"][name] for t, r in init_rows.items()}}
-               for name in ("pos_power_rows", "bsr_spmm")}
+                      **{t: r["launches"][name] for t, r in init_rows.items()},
+                      **{f"repeat {t} (2 runs)": r[name] for t, r in repeat.items()},
+                      **{t: r[name] for t, r in tooling.items()}}
+               for name in WRAPPERS}
     local = {k: v for k, v in rows.items() if k.split()[0] in SCALED_PATHS}
     print(f"total {time.perf_counter() - t0:.1f} s (by phase, s: {'; '.join(marks)})")
     print(power_limit)
@@ -925,6 +1262,9 @@ def main(argv=None) -> int:
         "edge_list_ms": bsr_main["edge_list_ms"],
         "bound_ms_dense_blocks": bsr_main["bound_ms_dense_blocks"],
         "device_ms": bsr_main["device_ms"], "library_device_ms": bsr_main["library_device_ms"],
+        "sop_batch": {k: bsr_batch[k] for k in (
+            "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "edge_list_ms")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

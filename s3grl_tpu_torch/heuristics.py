@@ -14,7 +14,7 @@ import torch
 from s3grl_tpu_torch.config import RunConfig
 from s3grl_tpu_torch.data.graph import Graph
 from s3grl_tpu_torch.data.split import EdgeSplit
-from s3grl_tpu_torch.ops.spmm import spmm
+from s3grl_tpu_torch.ops.spmm import edge_list, spmm
 from s3grl_tpu_torch.sampling.extraction import DeviceGraph
 from s3grl_tpu_torch.train.metrics import evaluate_auc
 
@@ -57,13 +57,13 @@ def ppr_scores(dg: DeviceGraph, links: torch.Tensor) -> torch.Tensor:
     out_deg = torch.zeros(N, device=dg.device).index_add_(0, dg.edge_src, dg.edge_weight)
     inv_out = torch.where(out_deg > 0, 1.0 / out_deg, torch.zeros_like(out_deg))
     dangling = (out_deg == 0).to(torch.float32)
-    w = dg.edge_weight * inv_out[dg.edge_src]
+    edges = edge_list(dg.edge_src, dg.edge_dst, dg.edge_weight * inv_out[dg.edge_src], N)
     src = links[:, 0].long()
     p0 = torch.zeros((N, links.shape[0]), device=dg.device)
     p0[src, torch.arange(links.shape[0], device=dg.device)] = 1.0
     s = p0
     for _ in range(PPR_ITERS):
-        sw = spmm(dg.edge_src, dg.edge_dst, w, s, N)
+        sw = spmm(edges, s)
         dang = (s * dangling[:, None]).sum(dim=0, keepdim=True)
         s = PPR_DAMPING * (sw + dang * p0) + (1.0 - PPR_DAMPING) * p0
     return s[links[:, 1].long(), torch.arange(links.shape[0], device=dg.device)]

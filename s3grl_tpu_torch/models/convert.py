@@ -1,6 +1,7 @@
-"""Weights of the JAX package's SIGNNet, GNN baselines and init
-representations (GAE/VGAE/ARGVA, SVGAE, GIC, node2vec) as a ``state_dict``
-of the port's models.
+"""Weights of the JAX package's SIGNNet, GNN baselines, WalkPool, the
+MF and GNN link-prediction baselines and the init representations
+(GAE/VGAE/ARGVA, SVGAE, GIC, node2vec) as a ``state_dict`` of the port's
+models.
 
 The JAX package keeps flax variables: ``params`` and ``batch_stats``,
 nested dicts keyed ``operator_diff`` / ``link_pred_mlp``, then ``Dense_i``
@@ -131,3 +132,52 @@ def n2v_embedding_from_jax(emb) -> torch.Tensor:
     """A node2vec embedding [N, H] of the JAX package as the float32 leaf
     that ``models/n2v.skipgram_loss`` trains."""
     return torch.tensor(np.asarray(emb, dtype=np.float32)).requires_grad_()
+
+
+# WalkPoolLinkPred's flax submodules in creation order, by the port's names.
+_WALKPOOL_DENSE = ("gcn1", "gcn2", "q", "k", "q_heads", "k_heads")
+
+
+def walkpool_state_dict_from_flax(variables: dict) -> dict:
+    """The JAX package's ``WalkPoolLinkPred`` variables -> the state_dict of
+    ``models/walkpool.WalkPoolLinkPred``: ``ZEmbedding_0`` (with DRNL),
+    ``Dense_0..5`` (GCN layers, q, k, the per-head q and k), and
+    ``WalkPoolClassifier_0`` with its ``MaskedBatchNorm_0`` and
+    ``Dense_0..4``."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out = {}
+    if "ZEmbedding_0" in params:
+        out["z_embedding.weight"] = np.asarray(params["ZEmbedding_0"]["embedding"])
+    for i, name in enumerate(_WALKPOOL_DENSE):
+        out.update(_dense(params[f"Dense_{i}"], name))
+    cls, cls_stats = params["WalkPoolClassifier_0"], stats["WalkPoolClassifier_0"]
+    for i in range(5):
+        out.update(_dense(cls[f"Dense_{i}"], f"classifier.lins.{i}"))
+    bn, bs = cls["MaskedBatchNorm_0"], cls_stats["MaskedBatchNorm_0"]
+    out["classifier.norm.weight"] = np.asarray(bn["scale"])
+    out["classifier.norm.bias"] = np.asarray(bn["bias"])
+    out["classifier.norm.running_mean"] = np.asarray(bs["mean"])
+    out["classifier.norm.running_var"] = np.asarray(bs["var"])
+    return {k: torch.tensor(np.asarray(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def mf_state_dict_from_jax(params: dict) -> dict:
+    """The JAX package's ``train_mf`` params ``{emb, w{i} [in, out], b{i}}``
+    -> the state_dict of ``models/baselines.MFModel``."""
+    out = {"emb": np.asarray(params["emb"])}
+    i = 0
+    while f"w{i}" in params:
+        out[f"lins.{i}.weight"] = np.asarray(params[f"w{i}"]).T
+        out[f"lins.{i}.bias"] = np.asarray(params[f"b{i}"])
+        i += 1
+    return {k: torch.tensor(np.asarray(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def gnn_baseline_state_dict_from_jax(params: dict) -> dict:
+    """The JAX package's ``train_gnn`` params (GCN ``w{i}``, ``b{i}``; SAGE
+    ``wl{i}``, ``bl{i}``, ``wr{i}``; GIN ``w{i}a``, ``b{i}a``, ``w{i}b``,
+    ``b{i}b``) -> the state_dict of ``models/baselines.GNNEncoder``, which
+    keeps the same names and [in, out] layout."""
+    return {f"params.{k}": torch.tensor(np.asarray(v, dtype=np.float32))
+            for k, v in params.items()}

@@ -12,34 +12,25 @@ variant optimizes the reconstruction loss only. ``faithful_bug=False``
 adds the textbook KL term.
 
 The global GCN convolution is the edge-list SpMM (``ops/spmm.spmm``), as
-the JAX package uses its XLA SpMM here and no Pallas kernel.
+the JAX package uses its XLA SpMM here and no Pallas kernel. It and the
+row gathers of the loss (``ops/segment.gather_rows``) add in a fixed
+order, so the embeddings repeat bit for bit on the card.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from s3grl_tpu_torch.data.graph import Graph
-from s3grl_tpu_torch.ops.spmm import spmm
+from s3grl_tpu_torch.ops.segment import gather_rows
+from s3grl_tpu_torch.ops.spmm import EdgeList, edge_list, spmm
 from s3grl_tpu_torch.train.metrics import evaluate_auc
 
 
-class NormEdges(NamedTuple):
-    """A normalized edge list with self loops, for :func:`spmm`."""
-
-    src: torch.Tensor  # [E] int64
-    dst: torch.Tensor  # [E] int64
-    w: torch.Tensor  # [E] float32
-    num_nodes: int
-
-    def propagate(self, x: torch.Tensor) -> torch.Tensor:
-        return spmm(self.src, self.dst, self.w, x, self.num_nodes)
-
-
-def _gcn_norm_edges(edge_index: np.ndarray, num_nodes: int, device="cpu") -> NormEdges:
+def _gcn_norm_edges(edge_index: np.ndarray, num_nodes: int, device="cpu") -> EdgeList:
     """GCNConv normalization with self loops (degrees counted on the
     destination side, in float64 on the host as the JAX package does)."""
     edge_index = np.asarray(edge_index, dtype=np.int64)
@@ -50,7 +41,7 @@ def _gcn_norm_edges(edge_index: np.ndarray, num_nodes: int, device="cpu") -> Nor
     np.add.at(deg, ei[1], 1.0)
     dinv = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1e-300)), 0.0)
     w = dinv[ei[0]] * dinv[ei[1]]
-    return NormEdges(
+    return edge_list(
         torch.as_tensor(ei[0], device=device), torch.as_tensor(ei[1], device=device),
         torch.as_tensor(w, dtype=torch.float32, device=device), num_nodes,
     )
@@ -77,15 +68,15 @@ class GCNAutoEncoder(nn.Module):
             setattr(self, name, nn.Parameter(
                 _glorot((hidden_channels, embedding_dim), generator, device)))
 
-    def forward(self, edges: NormEdges, x: torch.Tensor, *,
+    def forward(self, edges: EdgeList, x: torch.Tensor, *,
                 generator: torch.Generator | None = None, sample: bool = False):
         """(z, mu, logstd); mu and logstd are None for GAE, and z = mu
         unless ``sample``, which draws ``mu + eps * exp(logstd)``."""
-        h = torch.relu(edges.propagate(x @ self.w1))
+        h = torch.relu(spmm(edges, x @ self.w1))
         if not self.variational:
-            return edges.propagate(h @ self.w2), None, None
-        mu = edges.propagate(h @ self.w_mu)
-        logstd = edges.propagate(h @ self.w_ls)
+            return spmm(edges, h @ self.w2), None, None
+        mu = spmm(edges, h @ self.w_mu)
+        logstd = spmm(edges, h @ self.w_ls)
         if sample:
             eps = torch.randn(mu.shape, generator=generator, device=mu.device)
             return mu + eps * torch.exp(logstd), mu, logstd
@@ -96,8 +87,8 @@ def _recon_loss(z, pos_src, pos_dst, neg_src, neg_dst) -> torch.Tensor:
     """PyG GAE.recon_loss: -log sigma(z_u . z_v) on positives plus
     -log(1 - sigma(.)) on uniformly sampled negatives (eps 1e-15)."""
     eps = 1e-15
-    pos = torch.sigmoid((z[pos_src] * z[pos_dst]).sum(-1))
-    neg = torch.sigmoid((z[neg_src] * z[neg_dst]).sum(-1))
+    pos = torch.sigmoid((gather_rows(z, pos_src) * gather_rows(z, pos_dst)).sum(-1))
+    neg = torch.sigmoid((gather_rows(z, neg_src) * gather_rows(z, neg_dst)).sum(-1))
     return -torch.log(pos + eps).mean() - torch.log(1 - neg + eps).mean()
 
 

@@ -25,7 +25,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from s3grl_tpu_torch.data.graph import Graph
-from s3grl_tpu_torch.models.gae import NormEdges, features_or_identity
+from s3grl_tpu_torch.models.gae import features_or_identity
+from s3grl_tpu_torch.ops.spmm import EdgeList, edge_list, spmm
 from s3grl_tpu_torch.train.metrics import evaluate_auc
 
 DATASET_HPARAMS = {
@@ -37,7 +38,7 @@ DATASET_HPARAMS = {
 DEFAULT_HPARAMS = (100.0, 0.5, 10)
 
 
-def _norm_adj_with_self_loops(edge_index: np.ndarray, n: int, device="cpu") -> NormEdges:
+def _norm_adj_with_self_loops(edge_index: np.ndarray, n: int, device="cpu") -> EdgeList:
     """normalize_adj(A + I): D^-1/2 (A+I) D^-1/2 (GICEmbs.py:121), degrees
     counted on the source side in float64 on the host."""
     edge_index = np.asarray(edge_index, dtype=np.int64)
@@ -46,7 +47,7 @@ def _norm_adj_with_self_loops(edge_index: np.ndarray, n: int, device="cpu") -> N
     np.add.at(deg, ei[0], 1.0)
     dinv = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1e-300)), 0.0)
     w = dinv[ei[0]] * dinv[ei[1]]
-    return NormEdges(
+    return edge_list(
         torch.as_tensor(ei[0], device=device), torch.as_tensor(ei[1], device=device),
         torch.as_tensor(w, dtype=torch.float32, device=device), n,
     )
@@ -89,8 +90,8 @@ class GICModel(nn.Module):
             "mu_init", torch.rand((num_clusters, hidden), generator=generator, device=device)
         )
 
-    def encode(self, edges: NormEdges, feats: torch.Tensor) -> torch.Tensor:
-        h = edges.propagate(feats @ self.w_gcn) + self.b_gcn
+    def encode(self, edges: EdgeList, feats: torch.Tensor) -> torch.Tensor:
+        h = spmm(edges, feats @ self.w_gcn) + self.b_gcn
         return torch.where(h > 0, h, self.prelu_a * h)  # PReLU
 
 
@@ -99,7 +100,7 @@ def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -(labels * F.logsigmoid(logits) + (1 - labels) * F.logsigmoid(-logits)).mean()
 
 
-def gic_loss(model: GICModel, edges: NormEdges, x: torch.Tensor, shuf_idx: torch.Tensor,
+def gic_loss(model: GICModel, edges: EdgeList, x: torch.Tensor, shuf_idx: torch.Tensor,
              beta: float, alpha: float) -> torch.Tensor:
     """alpha * DGI BCE + (1 - alpha) * cluster BCE for one shuffle."""
     N = x.shape[0]

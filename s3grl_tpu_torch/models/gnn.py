@@ -22,6 +22,7 @@ from torch import nn
 import torch.nn.functional as Fn
 
 from s3grl_tpu_torch.models.mlp import MLP, MaskedBatchNorm, _linear
+from s3grl_tpu_torch.ops.segment import gather_rows
 
 MAX_Z = 1000  # reference: sgrl_link_pred.py:929
 
@@ -37,7 +38,9 @@ def _dropout(x, p: float, training: bool, generator):
 class ZEmbedding(nn.Module):
     """Embedding(max_z, hidden) with N(0, 1) init; z is cast to an integer
     (toward zero) and clipped to [0, max_z - 1]; multi-label z ([B, S, 2]
-    for de/de+) sums the embeddings (models.py:47-48)."""
+    for de/de+) sums the embeddings (models.py:47-48). The rows are
+    gathered by ``ops/segment.gather_rows``, whose backward adds in a fixed
+    order (``F.embedding``'s does not on the card)."""
 
     def __init__(self, hidden: int, generator=None):
         super().__init__()
@@ -46,7 +49,7 @@ class ZEmbedding(nn.Module):
             self.weight.normal_(0.0, 1.0, generator=generator)
 
     def forward(self, z):
-        emb = Fn.embedding(torch.clamp(z.to(torch.int64), 0, MAX_Z - 1), self.weight)
+        emb = gather_rows(self.weight, torch.clamp(z.to(torch.int64), 0, MAX_Z - 1))
         return emb.sum(dim=2) if emb.dim() == 4 else emb
 
 
@@ -282,9 +285,30 @@ class DGCNN(_SEALModel):
         if self.k > S:  # pad graphs smaller than k
             sel = Fn.pad(sel, (0, 0, 0, self.k - S))
 
-        y = Fn.relu(self.conv1(sel.reshape(B, 1, self.k * D)))  # [B, 16, k]
-        y = Fn.max_pool1d(y, 2, 2)  # [B, 16, k // 2]
-        y = Fn.relu(self.conv2(y))  # [B, 32, k // 2 - 4]
+        y = Fn.relu(conv1d_by_matmul(sel.reshape(B, 1, self.k * D), self.conv1))  # [B, k, 16]
+        y = Fn.max_pool1d(y.transpose(1, 2), 2, 2)  # [B, 16, k // 2]
+        y = Fn.relu(conv1d_by_matmul(y, self.conv2))  # [B, k // 2 - 4, 32]
         # Flatten length-major, as flax's [B, L, C] reshape does.
-        y = y.transpose(1, 2).reshape(B, -1)
-        return self.mlp(y, generator=generator)[:, 0]
+        return self.mlp(y.reshape(B, -1), generator=generator)[:, 0]
+
+
+def conv1d_by_matmul(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
+    """``conv(x)`` as matrix products, length-major: [B, C_in, L] ->
+    [B, L_out, C_out]. One product per tap (a single one when the stride is
+    the kernel width, as in DGCNN's first stage), so forward and backward
+    are cuBLAS products and fixed-order adds: cuDNN's weight gradient for
+    these shapes adds in an order that varies on the card, and SEAL runs
+    did not repeat."""
+    w, (kw,), (stride,) = conv.weight, conv.kernel_size, conv.stride
+    B, C, L = x.shape
+    if stride == kw and C == 1:
+        windows = x[:, 0, : (L // kw) * kw].reshape(B, L // kw, kw)
+        return Fn.linear(windows, w.reshape(w.shape[0], kw), conv.bias)
+    if stride != 1:
+        raise ValueError("conv1d_by_matmul takes stride 1 or one channel at stride = kernel")
+    L_out = L - kw + 1
+    xt = x.transpose(1, 2)  # [B, L, C_in]
+    out = conv.bias
+    for t in range(kw):
+        out = out + Fn.linear(xt[:, t : t + L_out], w[:, :, t])
+    return out

@@ -8,45 +8,23 @@ replace the node features, then NormalizeFeatures re-normalizes them.
 """
 from __future__ import annotations
 
-import contextlib
 import os
-import warnings
 
 import numpy as np
-import torch
 
 from s3grl_tpu_torch.config import RunConfig
 from s3grl_tpu_torch.data.graph import Graph, normalize_features
 from s3grl_tpu_torch.data.split import EdgeSplit
 
 
-@contextlib.contextmanager
-def _deterministic_scatters():
-    """Run the pretraining with PyTorch's deterministic algorithms: on the
-    card, ``index_add_`` (the edge-list SpMM) and the backward of row
-    gathers then add in a sorted order instead of with atomics, so the
-    embeddings, and the operators and training built on them, repeat bit
-    for bit. cuBLAS warns that it needs CUBLAS_WORKSPACE_CONFIG for that;
-    on one stream it gives the same bits anyway, so the warning is dropped."""
-    before = torch.are_deterministic_algorithms_enabled()
-    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings():
-            warnings.filterwarnings("ignore", message="Deterministic behavior was enabled")
-            yield
-    finally:
-        torch.use_deterministic_algorithms(before, warn_only=warn_only)
-
-
 def pretrain_representation(
     graph: Graph, edge_split: EdgeSplit, cfg: RunConfig, *, device="cuda"
 ) -> Graph:
     """The graph with its features replaced by ``cfg.init_representation``'s
-    embeddings, trained on ``device`` from the split's train edges, with
-    deterministic scatters (:func:`_deterministic_scatters`)."""
-    with _deterministic_scatters():
-        z = _pretrain(graph, edge_split, cfg, device)
+    embeddings, trained on ``device`` from the split's train edges. Every
+    sum with a gradient adds in a fixed order (``ops/spmm.spmm``,
+    ``ops/segment.gather_rows``), so the embeddings repeat on the card."""
+    z = _pretrain(graph, edge_split, cfg, device)
     return graph.with_features(normalize_features(np.asarray(z, dtype=np.float32)))
 
 

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from s3grl_tpu_torch.data.graph import Graph
+from s3grl_tpu_torch.ops.segment import gather_rows
 from s3grl_tpu_torch.sampling.extraction import DeviceGraph
 
 
@@ -81,12 +82,14 @@ def skipgram_loss(
     is ``log_sigmoid(-x)``, not the reference's ``log(1 - sigma(x) + eps)``,
     which turns to log(0) once sigma saturates (JAX n2v.py:107-113).
 
-    ``F.embedding`` gathers the rows: its backward adds in a fixed order."""
+    The rows are gathered by ``ops/segment.gather_rows``, whose backward
+    adds in a fixed order: ``F.embedding``'s backward does not on the card
+    (``scripts/repeat_probe.py``), and node2vec features did not repeat."""
 
     def dots(rw):
         w = rw.unfold(1, context_size, 1).reshape(-1, context_size)
-        start = F.embedding(w[:, :1], emb)  # [M, 1, H]
-        rest = F.embedding(w[:, 1:], emb)  # [M, C-1, H]
+        start = gather_rows(emb, w[:, :1])  # [M, 1, H]
+        rest = gather_rows(emb, w[:, 1:])  # [M, C-1, H]
         return (start * rest).sum(-1).reshape(-1)
 
     pos_loss = -F.logsigmoid(dots(pos_rw)).mean()

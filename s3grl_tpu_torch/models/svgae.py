@@ -34,13 +34,13 @@ import torch.nn.functional as F
 
 from s3grl_tpu_torch.data.graph import Graph
 from s3grl_tpu_torch.models.gae import (
-    NormEdges,
     _gcn_norm_edges,
     _glorot,
     _recon_loss,
     features_or_identity,
     link_scores,
 )
+from s3grl_tpu_torch.ops.spmm import EdgeList, spmm
 from s3grl_tpu_torch.train.metrics import evaluate_auc
 
 _RATIO_DEPTH = 64  # backward-recurrence depth for the Bessel ratio
@@ -152,16 +152,16 @@ class SVGAEEncoder(nn.Module):
         self.w_mu = nn.Parameter(_glorot((64, m), generator, device))
         self.w_kap = nn.Parameter(_glorot((64, 1), generator, device))
 
-    def forward(self, edges: NormEdges, x: torch.Tensor, generator: torch.Generator,
+    def forward(self, edges: EdgeList, x: torch.Tensor, generator: torch.Generator,
                 dropout: bool = False):
         """(z, mu, kappa): mu normalized, kappa = softplus(.), z one vMF draw."""
-        h = torch.relu(edges.propagate(x @ self.w1))
+        h = torch.relu(spmm(edges, x @ self.w1))
         if dropout:  # p = 0.1 (svgae.py:39, training only)
             keep = torch.rand(h.shape, generator=generator, device=h.device) < 0.9
             h = torch.where(keep, h / 0.9, torch.zeros_like(h))
-        mu = edges.propagate(h @ self.w_mu)
+        mu = spmm(edges, h @ self.w_mu)
         mu = mu / torch.clamp(torch.linalg.norm(mu, dim=1, keepdim=True), min=1e-12)
-        kappa = F.softplus(edges.propagate(h @ self.w_kap))
+        kappa = F.softplus(spmm(edges, h @ self.w_kap))
         return vmf_sample(mu, kappa, generator), mu, kappa
 
 

@@ -34,7 +34,7 @@ import torch
 
 from s3grl_tpu_torch.operators.common import OperatorDataset
 from s3grl_tpu_torch.operators.pos import measure_subgraph_sizes
-from s3grl_tpu_torch.ops.spmm import normalized_adjacency_weights, spmm
+from s3grl_tpu_torch.ops.spmm import EdgeList, edge_list, normalized_adjacency_weights, spmm
 from s3grl_tpu_torch.sampling.extraction import (
     DeviceGraph,
     SubgraphBatch,
@@ -185,9 +185,7 @@ def precompute_pos_fullrow(
 
 
 def _sop_fullrow_batch(
-    edge_src: torch.Tensor,
-    edge_dst: torch.Tensor,
-    norm_w: torch.Tensor,
+    edges: EdgeList,
     x_global: torch.Tensor,  # [N, F]
     links: torch.Tensor,  # [B, 2] int64
     *,
@@ -231,12 +229,12 @@ def _sop_fullrow_batch(
 
     # x (op 0) takes its labels from the power-1 subgraph (SoP_data_creation
     # keeps sop_data_list[0] as the base datapoint, tuned_SIGN.py:26).
-    Rk = spmm(edge_src, edge_dst, norm_w, R.T, num_nodes).T
+    Rk = spmm(edges, R.T).T
     diag = Rk[rows2b, ends].reshape(B, 2)
     ops = [zx(diag)]
     for k in range(sign_k):
         if k > 0:
-            Rk = spmm(edge_src, edge_dst, norm_w, Rk.T, num_nodes).T
+            Rk = spmm(edges, Rk.T).T
             diag = Rk[rows2b, ends].reshape(B, 2)  # Â^k[u, u]
         ops.append(diag[:, :, None] * zx(diag))
     return torch.stack(ops, dim=1)
@@ -273,7 +271,8 @@ def precompute_sop_fullrow(
     N = dg.num_nodes
     L = links.shape[0]
     links = np.asarray(links, dtype=np.int64)
-    norm_w = normalized_adjacency_weights(dg.edge_src, dg.edge_dst, N)
+    edges = edge_list(dg.edge_src, dg.edge_dst,
+                      normalized_adjacency_weights(dg.edge_src, dg.edge_dst, N), N)
     if batch_size <= 0:
         batch_size = max(16, min(4096, 24_000_000 // max(N, 1)))
 
@@ -281,7 +280,7 @@ def precompute_sop_fullrow(
     for start in range(0, L, batch_size):
         lb = torch.as_tensor(links[start : start + batch_size], device=dev)
         chunks.append(_sop_fullrow_batch(
-            dg.edge_src, dg.edge_dst, norm_w, dg.x, lb,
+            edges, dg.x, lb,
             sign_k=sign_k, num_nodes=N, node_label=node_label,
         ))
     return OperatorDataset(

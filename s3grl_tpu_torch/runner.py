@@ -1,8 +1,9 @@
 """End-to-end run orchestration on the GPU.
 
-Port of ``s3grl_tpu/runner.py``'s SIGN path (PoS, SoP and hybrid
-operators, optimized or full-row) and its SEAL GNN baselines (DGCNN, GCN,
-SAGE, GIN, through ``train/gnn_loop.run_gnn_learning``), the equivalent of
+Port of ``s3grl_tpu/runner.py``: the SIGN path (PoS, SoP and hybrid
+operators, optimized or full-row), the SEAL GNN baselines (DGCNN, GCN,
+SAGE, GIN, through ``train/gnn_loop.run_gnn_learning``) and WalkPool
+(``train/walkpool_loop.run_walkpool_learning``), the equivalent of
 the reference's ``run_sgrl_learning`` (sgrl_link_pred.py:791-1466): dataset
 load -> seeded edge split -> feature init -> operator precompute -> SIGNNet
 training -> highest-valid test metric.
@@ -19,7 +20,13 @@ drnl --hidden_channels 32 --num_hops 2`` a SEAL baseline; ``--init_features
 n2v --n2v_dim 16`` trains node2vec features; ``--m 3 --M 20 --num_hops 0``
 extracts ScaLed's random-walk subgraphs (PoS, PoS+, hybrid);
 ``--init_representation GAE|VGAE|ARGVA|SVGAE|GIC`` pretrains the features;
-``--use_heuristic CN|AA|PPR`` scores the split with a heuristic alone.
+``--use_heuristic CN|AA|PPR`` scores the split with a heuristic alone;
+``--model WalkPool --node_label drnl --hidden_channels 32 --lr 5e-5`` runs
+WalkPool; ``--dataset ogbl-*`` reads a downloaded OGB directory under
+``--data_root``; ``--profile`` writes the run's stats JSON under
+``{results_dir}/stats``; ``--checkpoint_training``, ``--continue_from N``,
+``--only_test`` and ``--test_multiple_models`` save, resume and score
+checkpoints in the run's results dir.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from s3grl_tpu_torch.config import RunConfig
 from s3grl_tpu_torch.data.features import init_features
 from s3grl_tpu_torch.data.graph import Graph, to_undirected
 from s3grl_tpu_torch.data.io import dataset_source_paths, load_dataset
+from s3grl_tpu_torch.data.ogb import load_ogb_dataset
 from s3grl_tpu_torch.data.split import EdgeSplit, do_edge_split, get_pos_neg_edges
 from s3grl_tpu_torch.heuristics import run_heuristic
 from s3grl_tpu_torch.models.init_representation import pretrain_representation
@@ -43,11 +51,13 @@ from s3grl_tpu_torch.operators.common import OperatorDataset
 from s3grl_tpu_torch.operators.fullrow import precompute_pos_fullrow, precompute_sop_fullrow
 from s3grl_tpu_torch.operators.pos import precompute_pos
 from s3grl_tpu_torch.operators.sop import precompute_sop
+from s3grl_tpu_torch.profiling import profile_helper
 from s3grl_tpu_torch.sampling.extraction import DeviceGraph
 from s3grl_tpu_torch.train.gnn_loop import run_gnn_learning
 from s3grl_tpu_torch.train.logger import Logger
 from s3grl_tpu_torch.train.loop import fit_signnet
 from s3grl_tpu_torch.train.metrics import eval_metric_for_dataset, make_eval_fn
+from s3grl_tpu_torch.train.walkpool_loop import run_walkpool_learning
 from s3grl_tpu_torch.utils.device import resolve_device
 from s3grl_tpu_torch.utils.seeding import seed_everything
 
@@ -161,18 +171,6 @@ def precompute_split(
     return precompute_pos(dg, links, y, **kw)
 
 
-def _check_ported(cfg: RunConfig) -> None:
-    """Raise for the parts of the run that the port does not have yet."""
-    missing = [
-        (cfg.model == "WalkPool", "WalkPool waits for ROADMAP module item 12"),
-        (cfg.profile, "profile (profiling.py) waits for ROADMAP module item 13"),
-        (cfg.dataset.startswith("ogbl"), "OGB datasets wait for ROADMAP module item 13"),
-    ]
-    for cond, msg in missing:
-        if cond:
-            raise NotImplementedError(f"not ported yet: {msg}")
-
-
 def run_sgrl_learning(
     cfg: RunConfig,
     graph: Optional[Graph] = None,
@@ -184,7 +182,6 @@ def run_sgrl_learning(
     (prep_time, best_test, train_times, inference_times, total_params)."""
     dev = resolve_device(device)
     cfg.validate()
-    _check_ported(cfg)
     rng, _ = seed_everything(cfg.seed)
 
     # Per-run results dir + command/log files (reference protocol:
@@ -208,7 +205,11 @@ def run_sgrl_learning(
     except OSError:  # read-only results root: keep running, drop file logs
         log_file = None
 
-    if graph is None:
+    if graph is None and cfg.dataset.startswith("ogbl"):
+        # OGB: a pre-made split, the observed graph its raw edges
+        # (reference sgrl_link_pred.py:826-828).
+        graph, edge_split = load_ogb_dataset(cfg.dataset, cfg.data_root)
+    elif graph is None:
         full = load_dataset(cfg.dataset, cfg.data_root)
         graph, edge_split = do_edge_split(
             full,
@@ -240,6 +241,8 @@ def run_sgrl_learning(
 
     if cfg.use_heuristic:
         return run_heuristic(graph, edge_split, cfg, device=dev)
+    if cfg.model == "WalkPool":
+        return run_walkpool_learning(graph, edge_split, cfg, rng, device=dev)
     if cfg.model != "SIGN":  # the SEAL GNN baselines (DGCNN, GCN, SAGE, GIN)
         return run_gnn_learning(graph, edge_split, cfg, rng, device=dev)
 
@@ -323,6 +326,16 @@ def run_sgrl_learning(
         device=dev,
     )
 
+    if cfg.profile:
+        # Per-run stats JSON (reference: profile_helper, profiler_utils.py:
+        # 10-66; written at sgrl_link_pred.py:1430-1435).
+        profile_helper(
+            fit.train_times, fit.inference_times, total_prep_time, fit.model,
+            dataset_num_links=datasets["train"].num_links,
+            stats_suffix=f"{cfg.model}_{cfg.dataset}_{cfg.save_appendix}_seed_{cfg.seed}",
+            out_dir=os.path.join(cfg.results_dir, "stats"), device=dev,
+        )
+
     logger = {}
     for results, _tinf in fit.results_per_epoch:
         for key, result in results.items():
@@ -337,7 +350,11 @@ def run_sgrl_learning(
                 print(key, file=f)
                 logger[key].print_statistics(0, f=f)
     if not best_scores:
-        raise RuntimeError("no evaluation results produced (epochs < eval_steps?)")
+        raise RuntimeError(
+            "no evaluation results produced: epochs < eval_steps, or, for "
+            "test_multiple_models, no run1_model_checkpoint*.pth files in "
+            f"{res_dir!r}"
+        )
 
     return (
         total_prep_time,

@@ -22,6 +22,7 @@ import torch
 
 from s3grl_tpu_torch.models.signnet import SIGNNet
 from s3grl_tpu_torch.operators.common import OperatorDataset
+from s3grl_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint, saved_epochs
 from s3grl_tpu_torch.train.metrics import evaluate_auc
 from s3grl_tpu_torch.utils.device import resolve_device
 
@@ -90,13 +91,16 @@ def fit_signnet(
     log_steps: int = 1,
     device="cuda",
 ) -> FitResult:
-    """Train SIGNNet on precomputed operator datasets; returns FitResult."""
-    if checkpoint_training or continue_from is not None or only_test or test_multiple_models:
-        raise NotImplementedError(
-            "checkpointing (checkpoint_training, continue_from, only_test, "
-            "test_multiple_models) is not ported yet: it waits for "
-            "train/checkpoint.py (ROADMAP module item 13)"
-        )
+    """Train SIGNNet on precomputed operator datasets; returns FitResult.
+
+    Checkpoints (``train/checkpoint.py``, in ``res_dir``): with
+    ``checkpoint_training`` the model and optimizer are saved every
+    ``log_steps`` epochs; ``continue_from`` restores epoch
+    ``continue_from``'s and trains the rest of ``epochs``; ``only_test``
+    scores the restored model once and trains nothing;
+    ``test_multiple_models`` scores every saved checkpoint of ``run``, in
+    epoch order, and trains nothing.
+    """
     dev = resolve_device(device)
     if num_layers is None:
         num_layers = sign_k
@@ -206,10 +210,40 @@ def fit_signnet(
         model.train()
         return torch.cat(outs).cpu().numpy()
 
+    def evaluate():
+        """(results, inference seconds) of the model on valid and test."""
+        val_pred = predict_all(x_va, m_va)
+        t1 = time.perf_counter()
+        test_pred = predict_all(x_te, m_te)
+        t_inf = time.perf_counter() - t1
+        return eval_fn(val_pred, np.asarray(val_ds.y), test_pred, np.asarray(test_ds.y)), t_inf
+
+    # Checkpointed resume (reference: sgrl_link_pred.py:1328-1338).
+    start_epoch = 1
+    if continue_from is not None:
+        load_checkpoint(res_dir, run, continue_from, model, opt, dev)
+        start_epoch = continue_from + 1
+        epochs = epochs - continue_from  # reference: sgrl_link_pred.py:1338
+    if only_test or test_multiple_models:
+        # Score the restored checkpoint, or every saved one, and train
+        # nothing (reference: sgrl_link_pred.py:1340-1380).
+        results_per_epoch = []
+        for ckpt_epoch in saved_epochs(res_dir, run) if test_multiple_models else [None]:
+            if ckpt_epoch is not None:
+                load_checkpoint(res_dir, run, ckpt_epoch, model, opt, dev)
+            results_per_epoch.append(evaluate())
+        return FitResult(
+            results_per_epoch=results_per_epoch,
+            train_times=[],
+            inference_times=[t for _, t in results_per_epoch],
+            num_params=n_params,
+            model=model,
+        )
+
     results_per_epoch = []
     train_times, inference_times = [], []
     model.train()
-    for epoch in range(1, epochs + 1):
+    for epoch in range(start_epoch, start_epoch + epochs):
         t0 = time.perf_counter()
         if pairwise:
             pperm = pos_idx_np[rng.permutation(len(pos_idx_np))]
@@ -231,15 +265,12 @@ def fit_signnet(
         total = float(loss_sum)  # host read: the epoch's work has finished
         train_times.append(time.perf_counter() - t0)
 
+        if checkpoint_training and epoch % log_steps == 0 and res_dir:
+            save_checkpoint(res_dir, run, epoch, model, opt)
+
         if epoch % eval_steps == 0:
-            val_pred = predict_all(x_va, m_va)
-            t1 = time.perf_counter()
-            test_pred = predict_all(x_te, m_te)
-            t_inf = time.perf_counter() - t1
+            results, t_inf = evaluate()
             inference_times.append(t_inf)
-            results = eval_fn(
-                val_pred, np.asarray(val_ds.y), test_pred, np.asarray(test_ds.y)
-            )
             results_per_epoch.append((results, t_inf))
             if logger_hook is not None:
                 logger_hook(epoch, total / L, results)

@@ -7,6 +7,10 @@
         [--init_features n2v --n2v_dim 16] [--m 3 --M 20 --num_hops 0] \
         [--k_heuristic 1] [--init_representation GAE|GIC|SVGAE] \
         [--use_heuristic CN|AA|PPR]
+    JAX_PLATFORMS=cpu python scripts/jax_synthetic_auc.py --seed 1 --epochs 5 \
+        --model WalkPool
+    JAX_PLATFORMS=cpu python scripts/jax_synthetic_auc.py --seed 1 \
+        --baseline mf|gnn-GCN|gnn-SAGE|gnn-GIN|n2v
 
 Runs ``s3grl_tpu.runner.run_sgrl_learning`` with one of ``chip_smoke.py``'s
 configs on ``tests/torch_port_helpers.usair_like_edges(seed)``, split as
@@ -28,7 +32,13 @@ configs on ``tests/torch_port_helpers.usair_like_edges(seed)``, split as
   rows pooled by mean, as configs/paper/scaled.json does), GAE/GIC/SVGAE
   init representations and the CN/AA/PPR heuristics (whose AUC is the raw
   one in [0, 1]). Every config that sets them pools operator-wise, so these
-  flags also set ``pool_operatorwise``.
+  flags also set ``pool_operatorwise``;
+- ``--model WalkPool``: ``chip_smoke.WALKPOOL``, configs/paper/walkpool.json's
+  USAir_WalkPool at its widths, cut to 10 % of the train links (about 15
+  minutes on a CPU at 5 epochs);
+- ``--baseline``: ``models/baselines.py``'s ``train_mf``, ``train_gnn``
+  (with the named layer) or ``run_n2v`` on the split, with
+  ``chip_smoke.BASELINES``' arguments and the seed; ``--epochs`` is unused.
 
 ``chip_smoke.py`` holds the printed AUC of each path in
 ``JAX_REFERENCE_AUC`` and fails when the torch port falls further below it
@@ -49,9 +59,11 @@ def config_fields(model: str, sign_type: str, node_label: str, optimize_sign: bo
                   extra: dict | None = None) -> dict:
     """RunConfig fields of the chip_smoke.py path these flags name; ``extra``
     holds the fields of the init, walk and heuristic flags that were given."""
-    from chip_smoke import BENCH, LABEL_PATHS
+    from chip_smoke import BENCH, LABEL_PATHS, WALKPOOL
 
-    if model == "SIGN" and optimize_sign:
+    if model == "WalkPool":
+        fields = {**BENCH, **WALKPOOL}
+    elif model == "SIGN" and optimize_sign:
         fields = {**BENCH, "sign_type": sign_type, "pool_operatorwise": sign_type != "PoS"}
     elif model == "SIGN":
         fields = {**BENCH, **LABEL_PATHS["fullrow"]}
@@ -66,12 +78,45 @@ def config_fields(model: str, sign_type: str, node_label: str, optimize_sign: bo
     return fields
 
 
+def baseline_auc(baseline: str, seed: int) -> None:
+    """Print the best test AUC of one of ``chip_smoke.BASELINES`` on the
+    synthetic graph, split as ``chip_smoke.py`` splits it."""
+    import time
+
+    from chip_smoke import BASELINES
+    from s3grl_tpu.config import RunConfig
+    from s3grl_tpu.data.graph import Graph
+    from s3grl_tpu.data.split import do_edge_split
+    from s3grl_tpu.models.baselines import run_n2v, train_gnn, train_mf
+    from s3grl_tpu.utils.seeding import seed_everything
+    from tests.torch_port_helpers import usair_like_edges
+
+    name = {"mf": "MF", "n2v": "n2v"}.get(baseline) or "GNN-" + baseline.split("-", 1)[1]
+    _, kwargs = BASELINES[name]
+    cfg = RunConfig(seed=seed)
+    g = Graph(num_nodes=332, edge_index=usair_like_edges(seed))
+    rng, _ = seed_everything(seed)
+    graph, split = do_edge_split(
+        g, val_ratio=cfg.split_val_ratio, test_ratio=cfg.split_test_ratio, rng=rng
+    )
+    t0 = time.perf_counter()
+    if baseline == "mf":
+        best, _ = train_mf(graph, split, seed=seed, **kwargs)
+    elif baseline == "n2v":
+        best = run_n2v(graph, split, seed=seed, **kwargs)
+    else:
+        best, _ = train_gnn(graph, split, seed=seed, **kwargs)
+    print(f"baseline {name} seed {seed}: best test AUC {best!r} "
+          f"({time.perf_counter() - t0:.1f} s on {os.environ.get('JAX_PLATFORMS', 'default')})")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--epochs", type=int, default=5)
     ap.add_argument("--sign_type", choices=("PoS", "SoP", "hybrid"), default="PoS")
-    ap.add_argument("--model", choices=("SIGN", "DGCNN", "GCN"), default="SIGN")
+    ap.add_argument("--model", choices=("SIGN", "DGCNN", "GCN", "WalkPool"), default="SIGN")
+    ap.add_argument("--baseline", choices=("mf", "gnn-GCN", "gnn-SAGE", "gnn-GIN", "n2v"))
     ap.add_argument("--node_label", default="",
                     help="overrides the path's label (drnl, de, de+, hop, zo, degree)")
     ap.add_argument("--optimize_sign", choices=("true", "false"), default="true")
@@ -95,6 +140,8 @@ def main(argv=None) -> None:
     from s3grl_tpu.utils.seeding import seed_everything
     from tests.torch_port_helpers import usair_like_edges
 
+    if args.baseline:
+        return baseline_auc(args.baseline, args.seed)
     optimize = args.optimize_sign == "true"
     fields = config_fields(args.model, args.sign_type, args.node_label, optimize, extra)
     if args.model == "SIGN" and not optimize:
@@ -111,7 +158,7 @@ def main(argv=None) -> None:
         )
         prep, best, _, _, _ = run_sgrl_learning(cfg, graph, split)
     what = (args.sign_type if args.model == "SIGN" and optimize
-            else f"{args.model} {cfg.node_label}" + ("" if optimize else " full-row"))
+            else "WalkPool" if args.model == "WalkPool" else f"{args.model} {cfg.node_label}" + ("" if optimize else " full-row"))
     if extra:
         what += " " + " ".join(f"{k}={v}" for k, v in extra.items())
     print(f"{what} seed {args.seed} epochs {args.epochs}: best test AUC {best!r} "

@@ -2,7 +2,7 @@
 """Where the torch port's main path spends its time on a CUDA card.
 
     python3 scripts/profile_torch_main_path.py [--seed 1] [--epochs 1] \
-        [--sign_type PoS|SoP|hybrid] [--model SIGN|DGCNN|GCN]
+        [--sign_type PoS|SoP|hybrid] [--model SIGN|DGCNN|GCN|WalkPool]
 
 With ``--model SIGN`` (default) it runs the two halves of one of
 ``chip_smoke.py``'s end-to-end runs, the operator precompute of all three
@@ -21,7 +21,14 @@ labels (these three build the cache), the re-densified adjacency of each
 step, the conv stack, sort-pool, and the Conv1d stages with the MLP (the
 score MLP for GCN); backward and Adam are the rest. The difference of the
 two runs gives one epoch's launches and wall time per step.
-Fails where CUDA is missing.
+
+With ``--model WalkPool`` it profiles ``chip_smoke.py``'s WalkPool path
+(``run_walkpool_learning`` at ``chip_smoke.WALKPOOL``'s cut) the same way,
+with these pieces: extraction, dense adjacency, labels, the GCN
+normalization, the GCN layers and attention (``gcn1`` to ``k_heads``), the
+edge weights, the walk chain (``walk_features``: the [B, S, S] products)
+and the classifier, each the forward's device time; backward and Adam are
+the rest. Fails where CUDA is missing.
 """
 from __future__ import annotations
 
@@ -160,6 +167,66 @@ def profile_gnn(args) -> None:
           f"included), wall {(w1 - w0) / 1e3:.1f} ms ({(w1 - w0) / 1e3 / steps:.3f} ms a step)")
 
 
+def profile_walkpool(args) -> None:
+    import torch
+    from torch.autograd import DeviceType
+
+    from chip_smoke import WALKPOOL, bench_config, split_graph, split_links
+    from s3grl_tpu_torch.models import walkpool
+    from s3grl_tpu_torch.train import walkpool_loop
+    from s3grl_tpu_torch.utils.seeding import seed_everything
+
+    cfg = dataclasses.replace(
+        bench_config(args.seed, args.epochs, os.path.join(ROOT, "build", "profile_results")),
+        **WALKPOOL,
+    )
+    graph, split = split_graph(cfg)
+    pieces = {(walkpool_loop, "extract_subgraphs"): "extraction",
+              (walkpool_loop, "dense_adjacency"): "dense adjacency",
+              (walkpool_loop, "label_nodes"): "labels",
+              (walkpool, "gcn_norm_adj"): "GCN normalization",
+              (walkpool, "edge_weights"): "edge weights",
+              (walkpool, "walk_features"): "walk chain"}
+    for (module, attr), label in pieces.items():
+        annotate(module, attr, label)
+    build = walkpool_loop.WalkPoolLinkPred
+
+    def build_annotated(*a, **kw):
+        model = build(*a, **kw)
+        annotate_span(model.gcn1, model.k_heads, "GCN layers + attention")
+        annotate_span(model.classifier, model.classifier, "classifier")
+        return model
+
+    walkpool_loop.WalkPoolLinkPred = build_annotated
+    labels = list(pieces.values()) + ["GCN layers + attention", "classifier"]
+    n_train = len(split_links(cfg, split)["train"])
+    steps = -(-n_train // cfg.batch_size)
+    print(f"{torch.cuda.get_device_name(0)}; WalkPool ({cfg.node_label}, hidden "
+          f"{cfg.hidden_channels}, {cfg.num_hops} hops); {n_train} train links, {steps} steps "
+          f"an epoch")
+    runs = {}
+    for epochs in (cfg.epochs, cfg.epochs + 1):
+        c = dataclasses.replace(cfg, epochs=epochs)
+
+        def run():
+            rng, _ = seed_everything(c.seed)
+            walkpool_loop.run_walkpool_learning(graph, split, c, rng, device="cuda")
+
+        prof, wall_us = profiled(f"WalkPool run_walkpool_learning, {epochs} epoch(s)", run)
+        launches = 0
+        for a in prof.key_averages():
+            if a.key.startswith("cudaLaunchKernel"):
+                launches += a.count
+            if a.key in labels and a.device_type != DeviceType.CUDA:
+                dev_us = getattr(a, "device_time_total", None)
+                dev_us = a.cuda_time_total if dev_us is None else dev_us
+                print(f"  piece  {a.key}: kernels {dev_us / 1e3:.3f} ms, {a.count} calls")
+        runs[epochs] = (launches, wall_us)
+    (l0, w0), (l1, w1) = runs[cfg.epochs], runs[cfg.epochs + 1]
+    print(f"one epoch: {l1 - l0} kernel launches ({(l1 - l0) / steps:.1f} a step, eval "
+          f"included), wall {(w1 - w0) / 1e3:.1f} ms ({(w1 - w0) / 1e3 / steps:.3f} ms a step)")
+
+
 def main(argv=None) -> None:
     import numpy as np
     import torch
@@ -177,9 +244,11 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--epochs", type=int, default=1)
     ap.add_argument("--sign_type", choices=("PoS", "SoP", "hybrid"), default="PoS")
-    ap.add_argument("--model", choices=("SIGN", "DGCNN", "GCN"), default="SIGN")
+    ap.add_argument("--model", choices=("SIGN", "DGCNN", "GCN", "WalkPool"), default="SIGN")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
+    if args.model == "WalkPool":
+        return profile_walkpool(args)
     if args.model != "SIGN":
         return profile_gnn(args)
     _build.build_all()

@@ -150,7 +150,7 @@ def test_forward_eval_matches_flax(graph_batch, case):
     assert sum(p.numel() for p in tm.parameters()) == _count_params(v["params"])
 
 
-def test_sort_pool_ties_keep_the_lowest_slots(graph_batch):
+def test_sort_pool_ties_keep_the_lowest_slots(graph_batch, monkeypatch):
     """With every node tied, the pooled rows are the first k valid slots in
     slot order (jax.lax.top_k's order), the rest zero."""
     k = 20
@@ -159,7 +159,14 @@ def test_sort_pool_ties_keep_the_lowest_slots(graph_batch):
     seen = {"convs": []}
     for conv in tm.convs:
         conv.register_forward_hook(lambda mod, inp, out: seen["convs"].append(out))
-    tm.conv1.register_forward_hook(lambda mod, inp, out: seen.update(pooled=inp[0]))
+    real = tgnn.conv1d_by_matmul
+
+    def first_stage_input(x, conv):
+        if conv is tm.conv1:
+            seen["pooled"] = x
+        return real(x, conv)
+
+    monkeypatch.setattr(tgnn, "conv1d_by_matmul", first_stage_input)
     tm.eval()
     with torch.no_grad():
         tm(adj, z, mask)
@@ -299,3 +306,27 @@ def test_static_cache_and_per_epoch_extraction_give_the_same_run(tmp_path):
     with pytest.raises(ValueError, match="static_cache"):
         run_gnn_learning(graph, split, cfg.replace(use_edge_weight=True), seed_everything(1)[0],
                          device="cpu", static_cache=True)
+
+
+@pytest.mark.parametrize("c_in,c_out,kw,stride,length", [
+    (1, 16, 97, 97, 97 * 30),  # DGCNN's first stage: one window a pooled row
+    (16, 32, 5, 1, 15),  # its second stage
+])
+def test_conv1d_by_matmul_equals_the_convolution(c_in, c_out, kw, stride, length):
+    """The matmul stages compute the Conv1d they replace, forward and
+    gradients, in the length-major layout [B, L_out, C_out]."""
+    torch.manual_seed(0)
+    conv = torch.nn.Conv1d(c_in, c_out, kw, stride)
+    x = torch.randn(3, c_in, length, requires_grad=True)
+    g = torch.randn(3, c_out, (length - kw) // stride + 1)
+    want = conv(x)
+    (want * g).sum().backward()
+    want_grads = [t.grad.clone() for t in (x, conv.weight, conv.bias)]
+    for t in (x, conv.weight, conv.bias):
+        t.grad = None
+    got = tgnn.conv1d_by_matmul(x, conv)
+    (got * g.transpose(1, 2)).sum().backward()
+    np.testing.assert_allclose(got.transpose(1, 2).detach().numpy(), want.detach().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    for t, w in zip((x, conv.weight, conv.bias), want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), w.numpy(), rtol=1e-5, atol=1e-5)

@@ -97,9 +97,10 @@ def test_cuda_kernel_rejects_what_it_does_not_take():
 # (n, e, c): tests/test_pallas_spmm.py's shapes, then the main path's width
 # (C = 1,025) at N not a multiple of 128, with one row block left empty.
 BSR_SHAPES = [(50, 200, 7), (300, 2500, 64), (513, 4000, 129), (332, 3600, 1025)]
-# Cora's shape; one column; four columns (the float4 route). With 500 edges
-# on 300 nodes about a fifth of the rows are empty.
-BSR_MORE = [(2708, 10556, 1433), (300, 500, 1), (300, 500, 4)]
+# Cora's shape; one column; four columns (the float4 route); SoP's
+# per-batch width (the one-hot endpoint columns of 4,096 links). With 500
+# edges on 300 nodes about a fifth of the rows are empty.
+BSR_MORE = [(2708, 10556, 1433), (300, 500, 1), (300, 500, 4), (332, 3600, 8192)]
 
 
 def _bsr_inputs(seed, n, e, c, empty_row_block=False):
@@ -387,8 +388,8 @@ def test_vmf_numerics_on_the_card_match_the_cpu(m):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["GAE", "GIC", "SVGAE"])
 def test_init_representation_on_the_card_repeats(kind, monkeypatch):
-    """The pretraining runs with deterministic scatters: twice on the card,
-    the same features bit for bit."""
+    """The pretraining's sums add in a fixed order, with no global
+    deterministic switch: twice on the card, the same features bit for bit."""
     from s3grl_tpu_torch.config import RunConfig
     from s3grl_tpu_torch.data.graph import Graph
     from s3grl_tpu_torch.data.split import do_edge_split
@@ -405,3 +406,64 @@ def test_init_representation_on_the_card_repeats(kind, monkeypatch):
     assert np.isfinite(a).all()
     np.testing.assert_array_equal(a, b)
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+@pytest.mark.gpu
+def test_walkpool_forward_on_the_card_matches_the_cpu():
+    """USAir_WalkPool's widths (hidden 32, 2 heads, walk length 7, DRNL) at
+    S = 512: the card's logits within 1e-4 of the CPU's."""
+    import copy
+
+    from s3grl_tpu_torch.config import RunConfig
+    from s3grl_tpu_torch.models.walkpool import WalkPoolLinkPred
+    from s3grl_tpu_torch.train.walkpool_loop import walkpool_batch
+
+    dev = _cuda(CARD_VS_CPU)
+    dg, _, _, links = _label_inputs()
+    cfg = RunConfig(model="WalkPool", node_label="drnl", num_hops=2)
+    adj, z, mask, x = walkpool_batch(dg, links, cfg, 512)
+    cpu = WalkPoolLinkPred(x.shape[-1], 32, drnl=True, generator=torch.Generator().manual_seed(3))
+    card = copy.deepcopy(cpu).to(dev)
+    for m in (cpu, card):
+        m.eval()
+    with torch.no_grad():
+        want = cpu(adj, z, mask, x)
+        got = card(adj.to(dev), z.to(dev), mask.to(dev), x.to(dev))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+
+
+# The paths whose seeded runs did not repeat on the card (ROADMAP §3 item
+# 1), as RunConfig fields over chip_smoke.py's bench config, at 2 epochs.
+REPEAT_PATHS = {
+    "SoP": dict(sign_type="SoP", pool_operatorwise=True),
+    "hybrid": dict(sign_type="hybrid", pool_operatorwise=True),
+    "SEAL": dict(model="DGCNN", node_label="drnl", init_features="", use_feature=False,
+                 hidden_channels=32, num_layers=3),
+    "PoS-n2v": dict(init_features="n2v", n2v_dim=16, pool_operatorwise=True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", list(REPEAT_PATHS))
+def test_seeded_run_repeats_on_the_card(path, tmp_path):
+    """Two seeded 2-epoch runs on the card, each in its own results
+    directory (so node2vec trains anew), give the same best test AUC."""
+    from s3grl_tpu_torch.config import RunConfig
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.data.split import do_edge_split
+    from s3grl_tpu_torch.runner import run_sgrl_learning
+    from s3grl_tpu_torch.utils.seeding import seed_everything
+    from torch_port_helpers import usair_like_edges
+
+    dev = _cuda("it runs the path on the card")
+    rng, _ = seed_everything(1)
+    graph, split = do_edge_split(Graph(num_nodes=332, edge_index=usair_like_edges(1)), rng=rng)
+    best = []
+    for i in range(2):
+        cfg = RunConfig(dataset="USAir", init_features="degree", sign_type="PoS",
+                        optimize_sign=True, sign_k=3, hidden_channels=256, num_hops=2,
+                        epochs=2, delete_dataset=True, results_dir=str(tmp_path / str(i)))
+        cfg = cfg.replace(**REPEAT_PATHS[path])
+        best.append(run_sgrl_learning(cfg, graph, split, device=dev)[1])
+    assert np.isfinite(best[0])
+    assert best[0] == best[1], best

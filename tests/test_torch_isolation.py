@@ -36,7 +36,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "s3grl_tpu_torch.operators.sop" in mods and "s3grl_tpu_torch.ops.spmm_kernel" in mods
     for m in ("sampling.labeling", "operators.fullrow", "models.gnn", "train.gnn_loop",
               "runner_utils", "models.n2v", "sampling.random_walk", "heuristics",
-              "models.gae", "models.svgae", "models.gic", "models.init_representation"):
+              "models.gae", "models.svgae", "models.gic", "models.init_representation",
+              "models.baselines", "models.walkpool", "train.walkpool_loop",
+              "train.checkpoint", "profiling", "manager", "tuning", "analysis", "data.ogb",
+              "ops.segment"):
         assert f"s3grl_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -58,8 +61,27 @@ def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_port_does_not_import_sklearn():
+    """sklearn is absent where the port runs on the card: the logistic
+    regression of models/baselines.py is the port's own."""
+    import re
+
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "s3grl_tpu_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    found = re.search(r"^\s*(import|from)\s+sklearn\b", fh.read(), re.M)
+                assert found is None, os.path.join(dirpath, f)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     _no_cuda(monkeypatch)
+    suite = str(tmp_path / "suite.json")
+    with open(suite, "w") as f:
+        f.write('{"datasets": {"X": {"ds_params": {"runs": 1, "seeds": [1], '
+                '"dataset": "USAir"}, "hyperparams_per_run": {"sign_type": "PoS", '
+                '"optimize_sign": true, "init_features": "degree"}}}}')
+    results = str(tmp_path / "tune.json")
     from s3grl_tpu_torch.operators.common import OperatorDataset
     from s3grl_tpu_torch.operators.pos import precompute_pos
     from s3grl_tpu_torch.operators.sop import precompute_sop
@@ -74,6 +96,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from s3grl_tpu_torch.models.svgae import run_svgae
     from s3grl_tpu_torch.train.gnn_loop import run_gnn_learning
     from s3grl_tpu_torch.train.loop import fit_signnet
+    from s3grl_tpu_torch.train.walkpool_loop import run_walkpool_learning
+    from s3grl_tpu_torch.models.baselines import run_n2v, train_gnn, train_mf
+    from s3grl_tpu_torch.manager import main as manager_main
+    from s3grl_tpu_torch.tuning import ray_tune_helper
 
     rng = np.random.default_rng(0)
     g = Graph(num_nodes=40, edge_index=random_edges(rng, n=40, e=80),
@@ -112,6 +138,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: main(["--init_representation", "GAE", "--init_features", "degree"]),
         lambda: main(["--m", "3", "--M", "20", "--num_hops", "0", "--init_features", "degree",
                       "--sign_type", "PoS", "--optimize_sign"]),
+        lambda: run_walkpool_learning(g, None, RunConfig(model="WalkPool"), None),
+        lambda: main(["--model", "WalkPool", "--node_label", "drnl"]),
+        lambda: main(["--dataset", "ogbl-collab", "--sign_type", "PoS", "--optimize_sign",
+                      "--init_features", "degree"]),
+        lambda: main(["--profile", "--sign_type", "PoS", "--optimize_sign",
+                      "--init_features", "degree"]),
+        lambda: fit_signnet(ds, ds, ds, sign_k=1, epochs=1, only_test=True, continue_from=1),
+        lambda: train_mf(g, None),
+        lambda: train_gnn(g, None),
+        lambda: run_n2v(g, None),
+        lambda: manager_main(["--config", suite]),
+        lambda: ray_tune_helper(RunConfig(sign_type="PoS", optimize_sign=True,
+                                          init_features="degree"), num_samples=1,
+                                max_epochs=1, grace_period=1, results_json=results),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -29,7 +29,7 @@ from s3grl_tpu_torch.config import RunConfig
 from s3grl_tpu_torch.data.graph import Graph
 from s3grl_tpu_torch.operators.common import OperatorDataset
 from s3grl_tpu_torch.operators.sop import _sop_power_features, precompute_sop
-from s3grl_tpu_torch.ops.spmm import normalized_adjacency_weights
+from s3grl_tpu_torch.ops.spmm import edge_list, normalized_adjacency_weights
 from s3grl_tpu_torch.ops.spmm_kernel import blockify, power_chain, should_use_bsr
 from s3grl_tpu_torch.runner import build_split_links, run_sgrl_learning
 from s3grl_tpu_torch.sampling.extraction import DeviceGraph
@@ -81,7 +81,7 @@ def test_chain_routes_match_jax(n, e, f, bsr, sign_k):
     jw = j_norm_weights(jdg.edge_src, jdg.edge_dst, n)
     want = np.asarray(jsop._sop_power_features(
         jdg.edge_src, jdg.edge_dst, jw, jdg.x, sign_k=sign_k, num_nodes=n))
-    edge = _sop_power_features(src, dst, w, torch.as_tensor(x), sign_k=sign_k, num_nodes=n)
+    edge = _sop_power_features(edge_list(src, dst, w, n), torch.as_tensor(x), sign_k=sign_k)
     blocks = power_chain(blockify(ei[0], ei[1], w.numpy(), n, device="cpu"),
                          torch.as_tensor(x), sign_k)
     assert edge.shape == blocks.shape == (sign_k, n, f)

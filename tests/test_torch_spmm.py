@@ -15,7 +15,8 @@ import torch
 from s3grl_tpu.ops.spmm import normalized_adjacency_weights as j_norm_weights
 from s3grl_tpu.ops.spmm import spmm as j_spmm
 import s3grl_tpu.ops.spmm_pallas as jsp
-from s3grl_tpu_torch.ops.spmm import normalized_adjacency_weights, spmm
+from s3grl_tpu_torch.ops.segment import segment_lengths, segment_sum
+from s3grl_tpu_torch.ops.spmm import edge_list, normalized_adjacency_weights, spmm
 from s3grl_tpu_torch.ops.spmm_kernel import (
     blockify,
     bsr_spmm,
@@ -190,12 +191,55 @@ def test_edge_list_spmm_and_weights_match_jax(n, e, c):
     src, dst, w, _ = _random_coo(rng, n, e)
     x = rng.normal(size=(n, c)).astype(np.float32)
     s, d = torch.as_tensor(src, dtype=torch.int64), torch.as_tensor(dst, dtype=torch.int64)
-    got = spmm(s, d, torch.as_tensor(w), torch.as_tensor(x), n).numpy()
+    got = spmm(edge_list(s, d, torch.as_tensor(w), n), torch.as_tensor(x)).numpy()
     want = np.asarray(j_spmm(src, dst, w, x, n))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     got_w = normalized_adjacency_weights(s, d, n).numpy()
     want_w = np.asarray(j_norm_weights(src, dst, n))
     np.testing.assert_allclose(got_w, want_w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,e,c", SHAPES[:2])
+def test_edge_list_spmm_gradient_matches_jax(n, e, c):
+    """The backward of the sorted edge list's product (A G, summed by
+    source) against jax.grad of the JAX package's edge-list SpMM."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(n + 2)
+    src, dst, w, dense = _random_coo(rng, n, e)
+    x = rng.normal(size=(n, c)).astype(np.float32)
+    g = rng.normal(size=(n, c)).astype(np.float32)
+    edges = edge_list(torch.as_tensor(src).long(), torch.as_tensor(dst).long(),
+                      torch.as_tensor(w), n)
+    xt = torch.as_tensor(x).requires_grad_()
+    (spmm(edges, xt) * torch.as_tensor(g)).sum().backward()
+    want = jax.grad(lambda v: jnp.sum(j_spmm(src, dst, w, v, n) * g))(jnp.asarray(x))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), dense.T @ g, rtol=1e-4, atol=1e-4)
+
+
+def test_edge_list_is_sorted_once_with_its_counts():
+    """Each direction holds the edges in a stable order by the row they add
+    into, and the counts per row (empty rows included); the sums equal the
+    per-call sort of ``segment_sum`` bit for bit."""
+    rng = np.random.default_rng(5)
+    n = 40
+    src, dst, w, _ = _random_coo(rng, n, 150)
+    s, d = torch.as_tensor(src).long(), torch.as_tensor(dst).long()
+    edges = edge_list(s, d, torch.as_tensor(w), n)
+    order = np.argsort(dst, kind="stable")
+    np.testing.assert_array_equal(edges.by_dst.gather.numpy(), src[order])
+    np.testing.assert_array_equal(edges.by_dst.weight.numpy(), w[order])
+    np.testing.assert_array_equal(edges.by_dst.lengths.numpy(), np.bincount(dst, minlength=n))
+    np.testing.assert_array_equal(edges.by_src.lengths.numpy(), np.bincount(src, minlength=n))
+    assert (edges.by_dst.lengths == 0).any()
+    x = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32))
+    want = segment_sum(x[s] * torch.as_tensor(w)[:, None], d, n)
+    assert torch.equal(spmm(edges, x), want)
+    idx = torch.as_tensor(np.sort(rng.integers(0, 7, 30)))
+    np.testing.assert_array_equal(segment_lengths(idx, 9).numpy(),
+                                  np.bincount(idx.numpy(), minlength=9))
 
 
 def test_selector_picks_bsr_on_usair_shape_and_edge_list_on_cora_shape():
