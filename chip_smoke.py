@@ -37,9 +37,9 @@ non-zero without the final line:
    first batch), GAE-, GIC- and SVGAE-initialized PoS, and CN, AA, PPR;
    each one's prep, train rate, peak memory, kernel launches and best test
    AUC against the JAX package's;
-7. repeat: each path of ``REPEAT_PATHS`` (SoP, hybrid, SEAL, PoS-n2v)
-   twice at ``REPEAT_EPOCHS`` epochs; the two best test AUCs, printed, must
-   be equal to the last bit;
+7. repeat: each path of ``REPEAT_PATHS`` (SoP, hybrid, SEAL, PoS-n2v,
+   PoS-sampled) twice at ``REPEAT_EPOCHS`` epochs; the two best test AUCs,
+   printed, must be equal to the last bit;
 8. WalkPool: configs/paper/walkpool.json's USAir_WalkPool at its widths
    (S = 512 on this graph), cut in links and epochs only (``WALKPOOL``);
    prep, train rate, peak memory and best test AUC against the JAX
@@ -51,7 +51,20 @@ non-zero without the final line:
     ``only_test``, ``test_multiple_models``, each score equal to the saving
     run's), the ``profile`` route's stats JSON with the card's memory, and
     an OGB run (a synthetic ogbl-collab directory, PoS, Hits@50);
-11. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
+11. large graphs (``phase_large_graphs``): the BFS crossover, the sizing
+    pass and node sets by the device BFS and by the native host core on
+    random graphs of 500 to 200,000 nodes (average degree 20, 2,048 links,
+    2 hops), which must agree, and ``precompute_pos`` by both routes on
+    each and on the main path's train split, bit for bit (the auto route
+    too at 50,000 nodes); then 256 links of a BlogCatalog-sized power-law
+    graph (hub degree 3,377: a global table 3,392 wide) by both routes,
+    bit for bit; phase 3 also holds ``pos_power_rows`` on that graph's
+    first S = 1,024 batch against its plain version;
+12. sampled paths (``SAMPLED_PATHS``): the bench config with
+    ``ratio_per_hop`` 0.5 and SEAL with ``max_nodes_per_hop`` 10, each
+    one's prep, train rate, peak memory and best test AUC against the JAX
+    package's (the first also in the repeat phase);
+13. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
     by ``torch.profiler``, on inputs built again; then one profiled
     1-epoch run of each path of ``IDLE_PATHS`` (one of each kind: a label
     path, a ScaLed path, an init path, a heuristic, WalkPool) for its
@@ -66,6 +79,7 @@ Imports nothing of JAX or the JAX package. Exits 2 when CUDA is missing.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -93,6 +107,8 @@ EPOCHS = 5
 #   ... --num_hops 3 --init_representation GAE|GIC|SVGAE      (*-init)
 #   ... --use_heuristic CN|AA|PPR                             (a raw AUC in [0, 1])
 #   ... --model WalkPool                                      (WALKPOOL's cut)
+#   ... --ratio_per_hop 0.5                                   (PoS-sampled)
+#   ... --epochs 2 --model DGCNN --max_nodes_per_hop 10       (SEAL-sampled)
 JAX_REFERENCE_AUC = {
     "PoS": 77.23776146708104,
     "SoP": 76.65145804403888,
@@ -110,6 +126,8 @@ JAX_REFERENCE_AUC = {
     "AA": 0.917410566686504,
     "PPR": 0.799466596133924,
     "WalkPool": 92.15323238334545,
+    "PoS-sampled": 75.6309374242324,
+    "SEAL-sampled": 85.48788820560294,
 }
 AUC_SLACK = 3.0  # the port may fall at most 0.03 below it
 # A label path's slack is the larger of AUC_SLACK and the spread (max - min)
@@ -120,8 +138,10 @@ AUC_SLACK = 3.0  # the port may fall at most 0.03 below it
 # ScaLed-Plus 90.9013 / 88.6409 / 87.5229, GAE-init 83.3984 / 79.5200 /
 # 78.2579, GIC-init 81.0311 / 79.9655 / 77.0941, SVGAE-init 83.6254 /
 # 80.3695 / 83.1055. WalkPool (--model WalkPool, WALKPOOL's cut): 92.1532 /
-# 92.1696 / 91.6215.
+# 92.1696 / 91.6215. PoS-sampled 75.6309 / 74.2838 / 69.3969, SEAL-sampled
+# 85.4879 / 81.6731 / 81.5945.
 JAX_AUC_RANGE = {"SEAL": 2.4578466955183416, "GCN-DE": 5.781168192427586,
+                 "PoS-sampled": 6.234046866105061, "SEAL-sampled": 3.89342580714019,
                  "WalkPool": 0.54808280199144,
                  "fullrow": 10.44373237128417, "PoS-n2v": 6.019303891107455,
                  "ScaLed": 7.6048934908669565, "ScaLed-Plus": 3.3783484351946385,
@@ -210,9 +230,17 @@ SCALED_PATHS = ("ScaLed", "ScaLed-Plus")
 # The paths whose seeded runs did not repeat on the card before they added
 # in a fixed order (ROADMAP §3 item 1): RunConfig fields over BENCH, run
 # twice at REPEAT_EPOCHS epochs.
+# The sampled paths (per-hop sampling, drawn from jax.random's uniforms as the
+# JAX package draws them): RunConfig fields over BENCH and their epochs. The
+# bench config with ratio_per_hop 0.5, and SEAL (Table 2's USAir widths) with
+# max_nodes_per_hop 10 on the dynamic route (the static cache needs no
+# sampling).
+SAMPLED_PATHS = {"PoS-sampled": (dict(ratio_per_hop=0.5), EPOCHS),
+                 "SEAL-sampled": ({**TABLE_2, "max_nodes_per_hop": 10}, 2)}
 REPEAT_PATHS = {"SoP": dict(sign_type="SoP", pool_operatorwise=True),
                 "hybrid": dict(sign_type="hybrid", pool_operatorwise=True),
-                "SEAL": TABLE_2, "PoS-n2v": INIT_PATHS["PoS-n2v"]}
+                "SEAL": TABLE_2, "PoS-n2v": INIT_PATHS["PoS-n2v"],
+                "PoS-sampled": SAMPLED_PATHS["PoS-sampled"][0]}
 REPEAT_EPOCHS = 2
 BASELINE_SEEDS = (1, 2, 3)
 # The JAX package's best test AUC of each of BASELINES over seeds 1-3, each
@@ -389,6 +417,7 @@ def kernel_cases(cfg, graph, split):
                        subg_x=x.contiguous(), sign_k=cfg.sign_k, row_ids=None),
                   sub.node_mask))
     cases += scaled_kernel_cases(cfg, dg, split)
+    cases += hub_kernel_cases()
     return cases, D, F
 
 
@@ -435,14 +464,16 @@ def bound_ms_of(n_bytes: float, flops: float) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bound_of(kw, node_mask) -> tuple[float, str, float, float, np.ndarray, float]:
+def bound_of(kw, node_mask) -> tuple[float, str, float, float, np.ndarray, float, float]:
     """(bound_ms, bound_by, bytes, flops, resolved entries per subgraph,
-    bound_ms over every padded slot) for one call. The bound counts what
-    this data needs: the member slots' rows (``node_mask``) of the table,
-    its weights, X and the row ids, each read once, the output written once;
-    one multiply-add per resolved neighbor entry and selected row per step,
-    and one per (k >= 1, row, member node, feature) for the output. A padded
-    slot adds nothing to the output."""
+    bound_ms over every padded slot, bound_ms over the member rows' real
+    degrees) for one call. The bound counts what this data needs: the
+    member slots' rows (``node_mask``) of the table, its weights, X and the
+    row ids, each read once, the output written once; one multiply-add per
+    resolved neighbor entry and selected row per step, and one per (k >= 1,
+    row, member node, feature) for the output. A padded slot adds nothing
+    to the output. The degree bound reads of each member row only its live
+    entries (weight != 0), not the table's padded width."""
     from s3grl_tpu_torch.ops.pos_kernel import _resolve_slots
 
     sel, nbr, w, x, K = kw["sel_idx"], kw["nbr"], kw["w"], kw["subg_x"], kw["sign_k"]
@@ -450,16 +481,20 @@ def bound_of(kw, node_mask) -> tuple[float, str, float, float, np.ndarray, float
     F, R = x.shape[2], sel.shape[1]
     ids = kw["row_ids"] is not None
 
-    def bytes_flops(rows, entries):
-        return (4 * (2 * rows * D + rows * F + B * (K + 1) * R * F + B * R + (rows if ids else 0)),
+    def bytes_flops(rows, entries, table_entries):
+        return (4 * (2 * table_entries + rows * F + B * (K + 1) * R * F + B * R
+                     + (rows if ids else 0)),
                 2.0 * (K * R * entries + K * R * rows * F))
 
     _, found = _resolve_slots(nbr, kw["row_ids"], S)
     per_subgraph = (found & (w.reshape(B, -1) != 0)).sum(dim=1).cpu().numpy()
     entries = int(per_subgraph.sum())
-    n_bytes, flops = bytes_flops(int(node_mask.sum()), entries)
-    padded_ms, _ = bound_ms_of(*bytes_flops(B * S, entries))
-    return (*bound_ms_of(n_bytes, flops), n_bytes, flops, per_subgraph, padded_ms)
+    rows = int(node_mask.sum())
+    live = int(((w != 0) & node_mask[:, :, None]).sum())
+    n_bytes, flops = bytes_flops(rows, entries, rows * D)
+    padded_ms, _ = bound_ms_of(*bytes_flops(B * S, entries, B * S * D))
+    degree_ms, _ = bound_ms_of(*bytes_flops(rows, entries, live))
+    return (*bound_ms_of(n_bytes, flops), n_bytes, flops, per_subgraph, padded_ms, degree_ms)
 
 
 def phase_kernels(cfg, graph, split, power_limit: str):
@@ -505,19 +540,20 @@ def phase_kernels(cfg, graph, split, power_limit: str):
             lib, kw["sel_idx"], kw["nbr"], kw["w"], kw["row_ids"], k, B, S, Dk,
             kw["sel_idx"].shape[1]), reps=20) for k in (kw["sign_k"], 0))
         plain_ms = cuda_ms(lambda: pos_power_rows_reference(**kw), reps=3)
-        bound_ms, by, n_bytes, flops, nnz, padded_ms = bound_of(kw, node_mask)
+        bound_ms, by, n_bytes, flops, nnz, padded_ms, degree_ms = bound_of(kw, node_mask)
         members = int(node_mask.sum())
         cap = lib.s3grl_pos_list_cap(S, Dk)
         rows[label] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=by, phase1_ms=phase1_ms,
                            resolved_entries=int(nnz.sum()), member_rows=members,
-                           padded_bound_ms=padded_ms)
+                           padded_bound_ms=padded_ms, degree_bound_ms=degree_ms)
         print(f"  {label}: max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} "
               f"(selector rows {h_err:.3e}) kernel {ms:.4f} ms (selector phase "
               f"{phase1_ms:.4f} ms, of it the table pass {table_ms:.4f} ms) "
               f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
               f"({by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP over {members} "
-              f"member rows of {B * S}; {padded_ms:.4f} ms over every padded slot) "
+              f"member rows of {B * S}; {padded_ms:.4f} ms over every padded slot, "
+              f"{degree_ms:.4f} ms over the member rows' live entries) "
               f"share of bound {bound_ms / ms:.3f}; resolved entries {int(nnz.sum())} "
               f"(per subgraph mean {nnz.mean():.1f}, max {int(nnz.max())}; "
               f"{int((nnz > cap).sum())} of {B} over the {cap}-entry shared-memory list)")
@@ -1149,6 +1185,279 @@ def phase_ogb(cfg, graph, split) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def env(**values):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# The large-graph phase: synthetic random graphs of average degree 20
+# (tests/torch_port_helpers.random_edges with 10 pairs a node), LARGE_LINKS
+# random links, 2 hops, the default largest bucket; L·E from 2e7 to 8e9.
+LARGE_NODES = (500, 1_000, 2_000, 10_000, 50_000, 200_000)
+LARGE_LINKS = 2_048
+LARGE_HOPS = 2
+LARGE_S = 1_024
+LARGE_PREP_NODES = 50_000  # the graph the auto route runs on too
+LARGE_FEATURES = 128
+# The hub-dense shape: tests/torch_port_helpers.blogcatalog_like_edges (10,312
+# nodes, 333,983 edges, hub degree 3,377: a global table 3,392 wide), 2 hops,
+# S = 1,024, 128 feature columns; HUB_LINKS observed edges through
+# precompute_pos, the first batch of which the kernel cases take.
+HUB_LINKS = 256
+HUB_FEATURES = 128
+
+
+def sync_s(t0: float) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def large_graph(n: int):
+    """(Graph, DeviceGraph on the card, links [LARGE_LINKS, 2]) of the random
+    graph of ``n`` nodes, average degree 20 and LARGE_FEATURES features."""
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from torch_port_helpers import random_edges
+
+    rng = np.random.default_rng(n)
+    ei = random_edges(rng, n=n, e=10 * n)
+    x = rng.normal(size=(n, LARGE_FEATURES)).astype(np.float32)
+    g = Graph(num_nodes=n, edge_index=ei, x=x)
+    links = rng.integers(0, n, (LARGE_LINKS, 2)).astype(np.int32)
+    return g, DeviceGraph.from_graph(g, device="cuda"), links
+
+
+def device_node_sets(dg, links):
+    """The device route's sizing pass (512 links a batch, as
+    measure_subgraph_sizes) and its node sets at LARGE_S (256 links a batch):
+    (sizes, nodes, mask, sizing s, node-set s)."""
+    import torch
+
+    from s3grl_tpu_torch.operators.pos import measure_subgraph_sizes
+    from s3grl_tpu_torch.sampling.extraction import extract_node_sets
+
+    t0 = time.perf_counter()
+    sizes = measure_subgraph_sizes(dg, links, num_hops=LARGE_HOPS)
+    sizing_s = sync_s(t0)
+    t0 = time.perf_counter()
+    parts = []
+    for a in range(0, len(links), 256):
+        lb = torch.as_tensor(links[a : a + 256], device="cuda")
+        nodes, mask, _, _ = extract_node_sets(dg, lb, num_hops=LARGE_HOPS, max_nodes=LARGE_S)
+        parts.append((nodes, mask))
+    nodes = torch.cat([p[0] for p in parts]).cpu().numpy()
+    mask = torch.cat([p[1] for p in parts]).cpu().numpy()
+    return sizes, nodes, mask, sizing_s, sync_s(t0)
+
+
+ROUTES = {"auto": {}, "host": dict(S3GRL_TPU_HOST_EXTRACT="1"),
+          "device": dict(S3GRL_TPU_HOST_EXTRACT="0")}
+
+
+def prep_both_ways(dg, links, label: str, routes=("host", "device")) -> dict:
+    """``precompute_pos`` (2 hops, K = 3) of ``links`` by each of ``routes``
+    (ROUTES: the auto choice, or the host or device BFS forced), which must
+    give the same datasets bit for bit: {route: (prep s, launches)}."""
+    import torch
+
+    from s3grl_tpu_torch.operators.pos import precompute_pos
+
+    y = np.ones(len(links), np.float32)
+    out, rows = {}, {}
+    for route in routes:
+        zero_counts()
+        t0 = time.perf_counter()
+        with env(**ROUTES[route]):
+            out[route] = precompute_pos(dg, links, y, num_hops=LARGE_HOPS, sign_k=3, device="cuda")
+        rows[route] = (sync_s(t0), kernel_counts())
+    first = out[routes[0]]
+    for route in routes[1:]:
+        if not (torch.equal(out[route].xs, first.xs)
+                and torch.equal(out[route].row_mask, first.row_mask)):
+            raise AssertionError(f"{label}: the {routes[0]} and {route} routes' datasets differ")
+    print(f"  precompute_pos {label}: " + ", ".join(
+        f"{r} prep {t:.4f} s (pos_power_rows launches {c['pos_power_rows']})"
+        for r, (t, c) in rows.items()) + "; datasets equal bit for bit")
+    return rows
+
+
+def phase_large_graphs(cfg, graph, split, power_limit: str) -> dict:
+    """(a) the BFS crossover: on each of LARGE_NODES, the sizing pass and
+    the node sets by the device BFS and by the host core (``native.bfs_sizes``,
+    one whole-split ``khop_nodes`` pass), which must agree, and
+    ``precompute_pos`` with 128 features by each route, bit for bit; the
+    same for the main path's train split; (b) ``precompute_pos`` on the
+    LARGE_PREP_NODES graph by the auto route too; (c) the hub graph, whose
+    kernel case phase_kernels runs, through ``precompute_pos`` by both
+    routes, bit for bit. Returns the crossover rows and each route's kernel
+    launches."""
+    import torch
+
+    from s3grl_tpu_torch import native
+    from s3grl_tpu_torch.data.features import init_features
+    from s3grl_tpu_torch.operators.pos import HOST_EXTRACT_MIN_LE
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+
+    print(f"large graphs: random graphs of average degree 20, {LARGE_LINKS} links, "
+          f"{LARGE_HOPS} hops, S = {LARGE_S}, {LARGE_FEATURES} features; host core on "
+          f"{os.cpu_count()} cores; card {power_limit}")
+    rows, launches = [], {}
+    for n in LARGE_NODES:
+        g, dg, links = large_graph(n)
+        E = int(dg.edge_src.shape[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        d_sizes, d_nodes, d_mask, d_size_s, d_nodes_s = device_node_sets(dg, links)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        t0 = time.perf_counter()
+        row_ptr, col_idx = native.build_csr(*dg.host_edges()[:2], None, n)[:2]
+        csr_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h_sizes = native.bfs_sizes(row_ptr, col_idx, links, LARGE_HOPS)
+        h_size_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h_nodes, kh_sizes = native.khop_nodes(row_ptr, col_idx, links, LARGE_HOPS, LARGE_S)
+        torch.as_tensor(h_nodes, device="cuda")  # the route ships them to the card
+        h_nodes_s = sync_s(t0)
+        if not np.array_equal(h_sizes, d_sizes):
+            raise AssertionError(f"N={n}: host and device subgraph sizes differ")
+        if not np.array_equal(np.minimum(kh_sizes, LARGE_S), np.minimum(d_sizes, LARGE_S)):
+            raise AssertionError(f"N={n}: khop_nodes' sizes differ from the device BFS")
+        if not (np.array_equal(h_nodes >= 0, d_mask)
+                and np.array_equal(np.where(d_mask, d_nodes, -1), h_nodes)):
+            raise AssertionError(f"N={n}: host and device node sets differ")
+        dev_s, host_s = d_size_s + d_nodes_s, csr_s + h_nodes_s
+        print(f"  N={n} E={E} L*E={LARGE_LINKS * E:.3e} mean size {d_sizes.mean():.1f} "
+              f"(over {LARGE_S}: {int((d_sizes > LARGE_S).sum())}): device BFS sizing "
+              f"{d_size_s:.4f} s + node sets {d_nodes_s:.4f} s = {dev_s:.4f} s, peak "
+              f"{peak:.1f} MiB over the graph; host csr {csr_s:.4f} s, bfs_sizes "
+              f"{h_size_s:.4f} s, khop_nodes (sizes + node sets, to the card) "
+              f"{h_nodes_s:.4f} s, route {host_s:.4f} s; equal")
+        routes = ("host", "device", "auto") if n == LARGE_PREP_NODES else ("host", "device")
+        prep = prep_both_ways(dg, links, f"N={n}", routes)
+        if n == LARGE_PREP_NODES:
+            launches.update({f"large-graph {r}": c for r, (_, c) in prep.items() if r != "host"})
+        rows.append(dict(nodes=n, edges=E, le=LARGE_LINKS * E, device_s=dev_s, host_s=host_s,
+                         device_peak_mib=peak, prep_host_s=prep["host"][0],
+                         prep_device_s=prep["device"][0]))
+        del dg, g
+        torch.cuda.empty_cache()
+    # The main path's train split (bench config, degree features).
+    links = split_links(cfg, split)["train"].astype(np.int32)
+    dg = DeviceGraph.from_graph(init_features(graph, cfg.init_features), device="cuda")
+    E = int(dg.edge_src.shape[0])
+    prep = prep_both_ways(dg, links, f"main path train split (N={graph.num_nodes}, "
+                          f"E={E}, {len(links)} links, L*E={len(links) * E:.3e})")
+    rows.append(dict(nodes=graph.num_nodes, edges=E, le=len(links) * E, main_path=True,
+                     prep_host_s=prep["host"][0], prep_device_s=prep["device"][0]))
+    for key in ("host_s", "prep_host_s"):
+        other = key.replace("host", "device")
+        won = [r["le"] for r in rows if key in r and r[key] < r[other]]
+        measured = sorted(r["le"] for r in rows if key in r)
+        print(f"  crossover ({'BFS stage' if key == 'host_s' else 'precompute_pos'}): "
+              f"the host route was faster at L*E {[f'{x:.1e}' for x in sorted(won)]} of "
+              f"{[f'{x:.1e}' for x in measured]}; the default threshold is "
+              f"{HOST_EXTRACT_MIN_LE:.0e}")
+
+    g, dg, links = hub_graph()
+    prep = prep_both_ways(dg, links, f"hub graph (N={g.num_nodes}, "
+                          f"D={int(dg.nbr.shape[1])}, {len(links)} links)")
+    launches["hub global"] = prep["host"][1]
+    return dict(crossover=rows, launches=launches)
+
+
+def hub_graph():
+    """(Graph, DeviceGraph on the card, HUB_LINKS observed links) of the
+    BlogCatalog-sized power-law graph with HUB_FEATURES normal features."""
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from torch_port_helpers import blogcatalog_like_edges
+
+    ei = blogcatalog_like_edges(SEED)
+    n = int(ei.max()) + 1
+    rng = np.random.default_rng(SEED)
+    g = Graph(num_nodes=n, edge_index=ei,
+              x=rng.normal(size=(n, HUB_FEATURES)).astype(np.float32))
+    links = ei[:, rng.choice(ei.shape[1], HUB_LINKS, replace=False)].T.astype(np.int32)
+    return g, DeviceGraph.from_graph(g, device="cuda"), links
+
+
+def hub_kernel_cases():
+    """``pos_power_rows`` on the first batch that ``precompute_pos``' host
+    route runs in the hub graph's S = 1,024 bucket: its links in the order of
+    the route's clamped sizes, batch_cap's B of them, with global ids on the
+    global table, as (label, kwargs, node mask)."""
+    import inspect
+
+    import torch
+
+    from s3grl_tpu_torch import native
+    from s3grl_tpu_torch.operators.pos import (
+        _size_buckets, batch_cap, global_kernel_inputs, precompute_pos,
+    )
+    from s3grl_tpu_torch.sampling.extraction import pick_bucket
+
+    _, dg, links = hub_graph()
+    D = int(dg.nbr.shape[1])
+    B = batch_cap(LARGE_S, HUB_FEATURES, D, 0, 256)
+    buckets = _size_buckets(inspect.signature(precompute_pos).parameters["buckets"].default,
+                            LARGE_S)
+    nd, sizes = native.khop_nodes(*dg.host_csr(), links, LARGE_HOPS, LARGE_S)
+    sizes = np.minimum(sizes, LARGE_S)
+    order = np.argsort(sizes, kind="stable")
+    in_top = np.array([pick_bucket(int(s), buckets) == LARGE_S for s in sizes[order]])
+    order = order[in_top][:B]
+    nodes = torch.as_tensor(np.where(nd[order] >= 0, nd[order], 0), device="cuda")
+    mask = torch.as_tensor(nd[order] >= 0, device="cuda")
+    sel, nbr, w, x, row_ids, _ = global_kernel_inputs(
+        dg, torch.as_tensor(links[order], device="cuda"), nodes, mask)
+    return [(f"hub global S={LARGE_S} D={D} R=2 B={len(order)}",
+             dict(sel_idx=sel, nbr=nbr, w=w, subg_x=x, sign_k=3, row_ids=row_ids), mask)]
+
+
+def phase_sampled_paths(cfg, graph, split) -> dict:
+    """Each of SAMPLED_PATHS once: prep, train rate, peak memory and best
+    test AUC against the JAX package's on the same graph and config."""
+    import dataclasses
+
+    import torch
+
+    from s3grl_tpu_torch.runner import run_sgrl_learning
+
+    rows = {}
+    for name, (fields, epochs) in SAMPLED_PATHS.items():
+        c = dataclasses.replace(cfg, **fields, epochs=epochs)
+        n = {s: len(lk) for s, lk in split_links(c, split).items()}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        prep, best, train_times, _, n_params = run_sgrl_learning(c, graph, split, device="cuda")
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        rate = epochs * n["train"] / sum(train_times)
+        rows[name] = kernel_counts()
+        print(f"e2e {name}: model {c.model}, ratio_per_hop {c.ratio_per_hop}, "
+              f"max_nodes_per_hop {c.max_nodes_per_hop}, links {n}; prep {prep:.3f} s, train "
+              f"{rate:.1f} links/s ({epochs} epochs), best test AUC {best:.4f}, params "
+              f"{n_params}, launches {rows[name]}, max_memory_allocated {peak:.1f} MiB")
+        if c.model == "SIGN" and rows[name]["pos_power_rows"] == 0:
+            raise AssertionError(f"the {name} path never launched pos_power_rows")
+        check_auc(name, best)
+    return rows
+
+
 def phase_idle(cfg, graph, split, power_limit: str) -> None:
     """The device's idle share of each path of IDLE_PATHS: one 1-epoch run
     under ``torch.profiler`` (prep and eval included), 1 - busy / wall."""
@@ -1214,6 +1523,8 @@ def main(argv=None) -> int:
     tooling = {"checkpoints": timed("checkpoints", phase_checkpoints, cfg, graph, split),
                "profile": timed("profile", phase_profile, cfg, graph, split),
                "OGB": timed("OGB", phase_ogb, cfg, graph, split)}
+    large = timed("large graphs", phase_large_graphs, cfg, graph, split, power_limit)
+    sampled = timed("sampled paths", phase_sampled_paths, cfg, graph, split)
     timed("device times", phase_device_times, cfg, graph, split, rows, bsr_rows, power_limit)
     timed("idle", phase_idle, cfg, graph, split, power_limit)
     bsr_main, bsr_batch = bsr_rows[0], bsr_rows[1]
@@ -1228,7 +1539,9 @@ def main(argv=None) -> int:
     by_path = {name: {**{t: launches[t][name] for t in launches},
                       **{t: r["launches"][name] for t, r in init_rows.items()},
                       **{f"repeat {t} (2 runs)": r[name] for t, r in repeat.items()},
-                      **{t: r[name] for t, r in tooling.items()}}
+                      **{t: r[name] for t, r in tooling.items()},
+                      **{t: r[name] for t, r in large["launches"].items()},
+                      **{t: r[name] for t, r in sampled.items()}}
                for name in WRAPPERS}
     local = {k: v for k, v in rows.items() if k.split()[0] in SCALED_PATHS}
     print(f"total {time.perf_counter() - t0:.1f} s (by phase, s: {'; '.join(marks)})")
@@ -1250,6 +1563,15 @@ def main(argv=None) -> int:
             "bound_by": v["bound_by"], "member_rows": v["member_rows"],
             "padded_bound_ms": v["padded_bound_ms"],
             "launches": init_rows[k.split()[0]]["local_launches"]} for k, v in local.items()],
+        "hub": [{
+            "shape": k, "max_abs_err": v["max_abs_err"], "ms": v["ms"],
+            "device_ms": v["device_ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"], "member_rows": v["member_rows"],
+            "resolved_entries": v["resolved_entries"], "padded_bound_ms": v["padded_bound_ms"],
+            "degree_bound_ms": v["degree_bound_ms"],
+            "launches": large["launches"][" ".join(k.split()[:2])]["pos_power_rows"]}
+            for k, v in rows.items() if k.startswith("hub ")],
+        "bfs_crossover": large["crossover"],
     }, {
         "name": "bsr_spmm", "route": "cuda",
         "source": "s3grl_tpu_torch/csrc/bsr_spmm.cu",

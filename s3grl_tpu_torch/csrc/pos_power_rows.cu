@@ -28,7 +28,10 @@
 //    built by the block first; the TPU kernel compares every id with every
 //    row) and appends the row's resolved entries (slot, w) to a compact list
 //    grouped by s. The list lives in shared memory up to `cap` entries and spills
-//    past that into a global scratch region of its subgraph. The same pass
+//    past that into a global scratch region of its subgraph. A row is staged
+//    in shared memory until its count is known; a table wider than 1,024
+//    entries (a hub's row of the global table) is read twice instead, once to
+//    count and once to write the entries in the same order. The same pass
 //    sums coldeg (per warp, in a fixed order) and rowdeg (shared-memory
 //    atomics: its last bits can vary from run to run where weights are not
 //    small integers; with the 0/1 weights of an unweighted graph the sums are
@@ -65,6 +68,7 @@ constexpr int kWarps1 = kThreads1 / 32;
 constexpr int kChunks = 4;     // 32-entry chunks of a table row loaded together
 constexpr int kGroup = 8;      // lanes that share one row's entries
 constexpr int kListCap = 4096; // compact entries kept in shared memory (32 KB)
+constexpr int kStageMax = 1024; // entries of one table row a warp stages (8 KB)
 constexpr int kRT = 8;         // selector rows per warp in the X pass
 constexpr int kNV = 2;         // column chunks per lane in the X pass
 constexpr int kMaxRowGroupsPerBlock = 4;
@@ -107,6 +111,31 @@ __device__ __forceinline__ void resolve(const int (&id)[kChunks], const bool (&l
   }
 }
 
+// Width of a warp's staging row: the table's width up to kStageMax, else 0.
+// The rows of a wider table (a hub's global row) are read twice instead:
+// once to count and sum, once to write each entry to its place.
+__host__ __device__ __forceinline__ int stage_width(int D) {
+  return D <= kStageMax ? D : 0;
+}
+
+// Weights and slots (-1 where absent) of the kChunks·32 entries of one
+// table row from column d0, lane `lane` taking every 32nd.
+__device__ __forceinline__ void load_chunks(const int* nrow, const float* wrow, int D, int d0,
+                                            int lane, const int* hkeys, const int* hslots,
+                                            int S, bool has_ids, int log_t,
+                                            float (&wt)[kChunks], int (&l)[kChunks]) {
+  int id[kChunks];
+  bool live[kChunks];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int d = d0 + c * 32 + lane;
+    wt[c] = d < D ? wrow[d] : 0.f;
+    id[c] = d < D ? nrow[d] : -1;
+    live[c] = wt[c] != 0.f;
+  }
+  resolve(id, live, hkeys, hslots, S, has_ids, log_t, l);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
@@ -137,9 +166,11 @@ pos_selector_rows_kernel(const int* __restrict__ sel,      // [B, R]
   const int warp = tid >> 5;
   const int n_hash = has_ids ? 1 << log_t : 0;
 
+  const int sw = stage_width(D);
+  const bool staged = sw > 0;  // every row fits its warp's staging row
   int2* list = reinterpret_cast<int2*>(smem_i4);      // [cap] (slot, w or ŵ)
-  int2* stage = list + cap;                           // [kWarps1, D]
-  float* rdeg = reinterpret_cast<float*>(stage + kWarps1 * D);  // [S]
+  int2* stage = list + cap;                           // [kWarps1, sw]
+  float* rdeg = reinterpret_cast<float*>(stage + kWarps1 * sw);  // [S]
   float* cdeg = rdeg + S;                             // [S]
   int* rstart = reinterpret_cast<int*>(cdeg + S);     // [S] first entry of row s
   int* rcnt = rstart + S;                             // [S] entries of row s
@@ -180,32 +211,25 @@ pos_selector_rows_kernel(const int* __restrict__ sel,      // [B, R]
   }
 
   // The one pass over the table: a warp per source row s, kChunks chunks of
-  // the row loaded at once.
-  int2* st = stage + warp * D;
+  // the row loaded at once. A row wider than the staging row is read a
+  // second time to write its entries, in the same order.
+  int2* st = stage + warp * sw;
   for (int s = warp; s < S; s += kWarps1) {
     int n = 0;
     float cd = 0.f;
     const int* nrow = nbr_b + static_cast<int64_t>(s) * D;
     const float* wrow = w_b + static_cast<int64_t>(s) * D;
     for (int d0 = 0; d0 < D; d0 += 32 * kChunks) {
-      int id[kChunks], l[kChunks];
+      int l[kChunks];
       float wt[kChunks];
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const int d = d0 + c * 32 + lane;
-        wt[c] = d < D ? wrow[d] : 0.f;
-        id[c] = d < D ? nrow[d] : -1;
-      }
-      bool live[kChunks];
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) live[c] = wt[c] != 0.f;
-      resolve(id, live, hkeys, hslots, S, has_ids, log_t, l);
+      load_chunks(nrow, wrow, D, d0, lane, hkeys, hslots, S, has_ids, log_t, wt, l);
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
         if (d0 + c * 32 >= D) break;  // the same in every lane
         const unsigned hit = __ballot_sync(kFull, l[c] >= 0);
         if (l[c] >= 0) {
-          st[n + __popc(hit & ((1u << lane) - 1u))] = make_int2(l[c], __float_as_int(wt[c]));
+          if (staged)
+            st[n + __popc(hit & ((1u << lane) - 1u))] = make_int2(l[c], __float_as_int(wt[c]));
           cd += wt[c];
           atomicAdd(&rdeg[l[c]], wt[c]);
         }
@@ -222,7 +246,25 @@ pos_selector_rows_kernel(const int* __restrict__ sel,      // [B, R]
     }
     off = __shfl_sync(kFull, off, 0);
     __syncwarp();
-    for (int i = lane; i < n; i += 32) *entry(list, spill, cap, off + i) = st[i];
+    if (staged) {
+      for (int i = lane; i < n; i += 32) *entry(list, spill, cap, off + i) = st[i];
+    } else {
+      int m = off;
+      for (int d0 = 0; d0 < D; d0 += 32 * kChunks) {
+        int l[kChunks];
+        float wt[kChunks];
+        load_chunks(nrow, wrow, D, d0, lane, hkeys, hslots, S, has_ids, log_t, wt, l);
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          if (d0 + c * 32 >= D) break;
+          const unsigned hit = __ballot_sync(kFull, l[c] >= 0);
+          if (l[c] >= 0)
+            *entry(list, spill, cap, m + __popc(hit & ((1u << lane) - 1u))) =
+                make_int2(l[c], __float_as_int(wt[c]));
+          m += __popc(hit);
+        }
+      }
+    }
     __syncwarp();
   }
   __syncthreads();
@@ -555,7 +597,7 @@ int s3grl_pos_list_cap(int S, int D) {
 // Bytes of dynamic shared memory the selector kernel needs, with H_{k-1}
 // kept on chip (h_in_smem = 1) or read back from h (0).
 int64_t s3grl_pos_selector_smem(int S, int D, int R, int has_ids, int cap, int h_in_smem) {
-  int64_t bytes = 8 * (static_cast<int64_t>(cap) + static_cast<int64_t>(kWarps1) * D);
+  int64_t bytes = 8 * (static_cast<int64_t>(cap) + static_cast<int64_t>(kWarps1) * stage_width(D));
   bytes += 4 * (4 * static_cast<int64_t>(S) + R + 1);
   if (has_ids) bytes += 8 * (int64_t{1} << hash_log(S));
   if (h_in_smem) bytes += 8 * static_cast<int64_t>(S) * R;

@@ -40,6 +40,7 @@ from s3grl_tpu_torch.sampling.extraction import (
     SubgraphBatch,
     dense_adjacency,
     extract_subgraphs,
+    link_seeds_of,
     pick_bucket,
 )
 from s3grl_tpu_torch.sampling.labeling import label_nodes
@@ -76,6 +77,7 @@ def _extract_and_operate_fullrow(
     sign_k: int,
     node_label: str,
     max_label_dist: int,
+    link_seeds: Optional[torch.Tensor] = None,
 ):
     """Extraction + labeling + full-row PoS power chain for one batch.
 
@@ -84,6 +86,7 @@ def _extract_and_operate_fullrow(
     sub = extract_subgraphs(
         dg, links, num_hops=num_hops, max_nodes=max_nodes,
         ratio_per_hop=ratio_per_hop, max_nodes_per_hop=max_nodes_per_hop,
+        link_seeds=link_seeds,
     )
     B, S = sub.nodes.shape
     D = sub.nbr_local.shape[2]
@@ -125,6 +128,7 @@ def precompute_pos_fullrow(
     buckets=(32, 64, 128, 256, 512, 1024),
     batch_size: int = 256,
     max_subgraph_nodes: int = 1024,
+    seed: int = 0,
     device="cuda",
 ) -> OperatorDataset:
     """The non-optimized PoS flow (utils.py:497-531). ``dg`` must lie on
@@ -132,8 +136,8 @@ def precompute_pos_fullrow(
 
     Links are bucketed by subgraph size as in the optimized flow; every
     bucket's rows are padded to the LARGEST bucket used, so one
-    ``[L, K+1, S, Z+F]`` dataset comes out. The JAX package's ``seed``
-    feeds only per-hop sampling, which the port does not have yet.
+    ``[L, K+1, S, Z+F]`` dataset comes out. Per-hop sampling draws from
+    link i's seed ``seed * 1_000_003 + i``, as in the JAX package.
     """
     from s3grl_tpu_torch.utils.device import resolve_device
 
@@ -151,8 +155,9 @@ def precompute_pos_fullrow(
         for b in sorted(set(list(buckets) + [max_subgraph_nodes]))
         if b <= max_subgraph_nodes
     ]
+    link_seeds = link_seeds_of(seed, L)
     sizes = measure_subgraph_sizes(
-        dg, links, num_hops=num_hops, ratio_per_hop=ratio_per_hop,
+        dg, links, link_seeds, num_hops=num_hops, ratio_per_hop=ratio_per_hop,
         max_nodes_per_hop=max_nodes_per_hop, batch_size=max(batch_size, 512),
     )
     order = np.argsort(sizes, kind="stable")
@@ -176,6 +181,7 @@ def precompute_pos_fullrow(
                 num_hops=num_hops, max_nodes=bucket,
                 ratio_per_hop=ratio_per_hop, max_nodes_per_hop=max_nodes_per_hop,
                 sign_k=sign_k, node_label=node_label, max_label_dist=max_label_dist,
+                link_seeds=torch.as_tensor(link_seeds[idx], device=dev),
             )
             idx_t = torch.as_tensor(idx, device=dev)
             xs_all[idx_t, :, :bucket] = xs

@@ -4,8 +4,10 @@ Port of ``s3grl_tpu/operators/pos.py`` (reference semantics:
 ``OptimizedSignOperations.get_PoS_prepped_ds`` / ``get_PoS_Plus_prepped_ds``,
 tuned_SIGN.py:137-262). A batch of links is processed at once:
 
-1. BFS node sets (:func:`extract_node_sets`), or with ``rw_m``/``rw_M``
-   ScaLed's random-walk subgraphs (``sampling/random_walk.py``);
+1. node sets: the device BFS (:func:`extract_node_sets`, with per-hop
+   sampling where asked), the native host BFS on large graphs (below), or
+   with ``rw_m``/``rw_M`` ScaLed's random-walk subgraphs
+   (``sampling/random_walk.py``);
 2. selected rows (the two targets + optional CCN rows, union or
    intersection, tuned_SIGN.py:229-238);
 3. the selected rows of Â^k [1|X] for k = 0..K, through the hand-written
@@ -14,25 +16,43 @@ tuned_SIGN.py:137-262). A batch of links is processed at once:
    local tables it runs in its local-slot mode (``row_ids=None``), as the
    JAX package's ``use_pallas`` route does (pos.py:254-262).
 
+The large-graph route (JAX pos.py:654-755, 1023-1060): where no ScaLed and
+no sampling is asked and ``L·E`` reaches :data:`HOST_EXTRACT_MIN_LE` (1e8;
+``S3GRL_TPU_HOST_EXTRACT`` = ``auto``, ``0`` or ``1`` overrides), the
+threaded C++ BFS of ``native/graphcore.cpp`` builds the node sets on the
+host, in the device BFS's order ((hop, node id), src and dst first), so the
+dataset is the same bits. Where ``L·max_subgraph_nodes`` <= 6.4e7 one pass
+over the whole split runs first, its size column the bucketing oracle;
+above that ``native.bfs_sizes`` sizes the split and each batch takes its
+own pass. Below the threshold everything runs on the device.
+
 :func:`pos_operators` keeps the JAX package's gather path on a local
 neighbor table: the plain oracle the tests hold the kernel routes against.
 
 Left out of the port, because they exist for the TPU and its remote
-compiler and change no output: the sticky CCN/table-width caches, the scan
-route, the ``vmem_ok`` gate (every bucket goes through the kernel here), the
-staircase slot permutation (it changes only the TPU kernel's densify cost),
-and padding batches to a fixed size. The host-extract route (native C++ BFS
-above L*E = 1e8) is not ported yet: the device route gives the same
-datasets.
+compiler and change no output: the sticky CCN and table-width caches
+(``_EFF_CCN_STICKY``, ``_sticky_dpad``'s; padding columns carry weight 0),
+the scan route, the ``vmem_ok`` gate (every bucket goes through the kernel
+here), the staircase slot permutation (it changes only the TPU kernel's
+densify cost) and padding batches to a fixed size. Left out too: the
+JAX package's opt-in local-table route (``S3GRL_TPU_LOCAL_TAB``; on the
+card building the tables on the host cost more than the kernel saved), its
+pipelined whole-split pass (one pass bucketed once was faster on the card)
+and its CCN percentile pad (``S3GRL_TPU_CCN_PAD_PCT``, which drops CCN
+rows; the width here is the exact maximum). The mesh-sharded hooks
+(``extract_fn``, ``out_shardings``, ``batch_multiple``, ``size_oracle``)
+wait for the multi-device slice.
 """
 from __future__ import annotations
 
+import os
 import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
+from s3grl_tpu_torch import native
 from s3grl_tpu_torch.operators.common import OperatorDataset
 from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
 from s3grl_tpu_torch.sampling.extraction import (
@@ -41,7 +61,9 @@ from s3grl_tpu_torch.sampling.extraction import (
     SubgraphBatch,
     _bfs_distances,
     extract_node_sets,
+    link_seeds_of,
     pick_bucket,
+    samples,
 )
 from s3grl_tpu_torch.sampling.random_walk import extract_rw_subgraphs
 
@@ -51,6 +73,12 @@ from s3grl_tpu_torch.sampling.random_walk import extract_rw_subgraphs
 DEVICE_DS_BYTES = 3.5e9
 # f32 elements per transient [B, S, *] tensor, bounding the batch per bucket.
 ELEM_BUDGET = 256_000_000
+# The host-extract route's threshold on L·E, the JAX package's setting
+# (pos.py:674-676).
+HOST_EXTRACT_MIN_LE = 1e8
+# The whole-split host BFS pass runs while its [L, max_subgraph_nodes] int32
+# table holds at most this many entries (~256 MB), as in the JAX package.
+KHOP_TABLE_ENTRIES = 6.4e7
 
 
 def _ccn_select(nbr0, nbr1, node_mask, strategy: str, max_ccn: int, R: int):
@@ -326,8 +354,7 @@ def scaled_batch_plan(
     bound = min(2 * rw_M * (rw_m + 1), dg.num_nodes, max_subgraph_nodes)
     bucket = pick_bucket(bound, _size_buckets(buckets, max_subgraph_nodes))
     per_batch = batch_cap(bucket, int(dg.x.shape[1]), int(dg.nbr.shape[1]), eff_ccn, batch_size)
-    link_seeds = (np.int64(seed) * 1_000_003 + np.arange(num_links)).astype(np.int32)
-    return bucket, per_batch, link_seeds
+    return bucket, per_batch, link_seeds_of(seed, num_links)
 
 
 def _size_buckets(buckets, max_subgraph_nodes: int) -> list[int]:
@@ -338,20 +365,42 @@ def _size_buckets(buckets, max_subgraph_nodes: int) -> list[int]:
 def measure_subgraph_sizes(
     dg: DeviceGraph,
     links: np.ndarray,
+    link_seeds: Optional[np.ndarray] = None,
     *,
     num_hops: int,
     ratio_per_hop: float = 1.0,
     max_nodes_per_hop: Optional[int] = None,
     batch_size: int = 512,
 ) -> np.ndarray:
-    """Sizing pass: BFS only, returns per-link subgraph node counts [L]."""
+    """Sizing pass: BFS only, returns per-link subgraph node counts [L],
+    by the device BFS, ``batch_size`` links at a time, sampled with
+    ``link_seeds`` (default ``arange(L)``) as extraction samples. (The
+    host-extract route of :func:`precompute_pos` sizes on the host.)"""
     L = links.shape[0]
+    if link_seeds is None:
+        link_seeds = np.arange(L, dtype=np.int32)
     out = np.empty(L, dtype=np.int32)
     for start in range(0, L, batch_size):
         lb = torch.as_tensor(links[start : start + batch_size], device=dg.device)
-        dist = _bfs_distances(dg, lb, num_hops, ratio_per_hop, max_nodes_per_hop)
+        ls = torch.as_tensor(link_seeds[start : start + batch_size], device=dg.device)
+        dist = _bfs_distances(dg, lb, num_hops, ratio_per_hop, max_nodes_per_hop, ls)
         out[start : start + len(lb)] = (dist != _UNREACHED).sum(dim=1).cpu().numpy()
     return out
+
+
+def host_extract_route(dg: DeviceGraph, num_links: int, *, scaled: bool,
+                       ratio_per_hop: float, max_nodes_per_hop: Optional[int]) -> bool:
+    """Whether :func:`precompute_pos` builds node sets with the native host
+    BFS (JAX pos.py:654-697): no ScaLed, no sampling, and
+    ``S3GRL_TPU_HOST_EXTRACT`` = ``1``, or ``auto`` (the default) with
+    ``L·E`` at least :data:`HOST_EXTRACT_MIN_LE`."""
+    mode = os.environ.get("S3GRL_TPU_HOST_EXTRACT", "auto")
+    return (
+        not scaled
+        and not samples(ratio_per_hop, max_nodes_per_hop)
+        and mode != "0"
+        and (mode == "1" or num_links * int(dg.edge_src.shape[0]) >= HOST_EXTRACT_MIN_LE)
+    )
 
 
 def precompute_pos(
@@ -378,9 +427,10 @@ def precompute_pos(
     device. ``dg`` must lie on ``device``.
 
     ``rw_m`` and ``rw_M`` both > 0 select ScaLed's random-walk subgraphs
-    (``num_hops`` is then unused), batched by :func:`scaled_batch_plan`. The
-    JAX package's ``size_oracle`` (the host-extract route) is left out with
-    the code that reads it.
+    (``num_hops`` is then unused), batched by :func:`scaled_batch_plan`.
+    Per-hop sampling draws from link i's seed ``seed * 1_000_003 + i``; on
+    large graphs the node sets come from the native host BFS
+    (:func:`host_extract_route`; the module docstring has the route).
     """
     from s3grl_tpu_torch.utils.device import resolve_device
 
@@ -436,15 +486,30 @@ def precompute_pos(
 
     buckets = _size_buckets(buckets, max_subgraph_nodes)
     scaled = bool(rw_m and rw_M)
+    host = host_extract_route(dg, L, scaled=scaled, ratio_per_hop=ratio_per_hop,
+                              max_nodes_per_hop=max_nodes_per_hop)
+    nodes_all = None
     if scaled:
         bucket, _, link_seeds = scaled_batch_plan(
             dg, L, rw_m=rw_m, rw_M=rw_M, seed=seed, eff_ccn=eff_ccn, buckets=buckets,
             max_subgraph_nodes=max_subgraph_nodes, batch_size=batch_size,
         )
         sizes = np.full(L, bucket, dtype=np.int32)
+    elif host and L * max_subgraph_nodes <= KHOP_TABLE_ENTRIES:
+        # One host BFS pass over the whole split: its node prefix does not
+        # depend on the cap, so slicing its table to a bucket's width equals
+        # a call at that width. Its sizes are exact below the cap and at
+        # least the cap where the BFS stopped early, so clamped they are the
+        # bucketing oracle.
+        nodes_all, sizes = native.khop_nodes(*dg.host_csr(), links, num_hops,
+                                             max_subgraph_nodes)
+        sizes = np.minimum(sizes, max_subgraph_nodes)
+    elif host:
+        sizes = native.bfs_sizes(*dg.host_csr(), links, num_hops)
     else:
+        link_seeds = link_seeds_of(seed, L)
         sizes = measure_subgraph_sizes(
-            dg, links, num_hops=num_hops, ratio_per_hop=ratio_per_hop,
+            dg, links, link_seeds, num_hops=num_hops, ratio_per_hop=ratio_per_hop,
             max_nodes_per_hop=max_nodes_per_hop, batch_size=max(batch_size, 512),
         )
     order = np.argsort(sizes, kind="stable")
@@ -465,10 +530,20 @@ def precompute_pos(
                     strategy=k_node_set_strategy, use_kernel=True,
                 )
             else:
-                nodes, node_mask, _, _ = extract_node_sets(
-                    dg, lb, num_hops=num_hops, max_nodes=int(bucket),
-                    ratio_per_hop=ratio_per_hop, max_nodes_per_hop=max_nodes_per_hop,
-                )
+                if host:
+                    if nodes_all is not None:
+                        nd = nodes_all[idx, :bucket]
+                    else:
+                        nd, _ = native.khop_nodes(*dg.host_csr(), links[idx], num_hops,
+                                                  int(bucket))
+                    nodes = torch.as_tensor(np.where(nd >= 0, nd, 0), device=dev)
+                    node_mask = torch.as_tensor(nd >= 0, device=dev)
+                else:
+                    nodes, node_mask, _, _ = extract_node_sets(
+                        dg, lb, num_hops=num_hops, max_nodes=int(bucket),
+                        ratio_per_hop=ratio_per_hop, max_nodes_per_hop=max_nodes_per_hop,
+                        link_seeds=torch.as_tensor(link_seeds[idx], device=dev),
+                    )
                 xs, row_mask = pos_operators_global(
                     dg, lb, nodes, node_mask,
                     sign_k=sign_k, max_ccn=eff_ccn, strategy=k_node_set_strategy,

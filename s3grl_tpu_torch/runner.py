@@ -152,7 +152,7 @@ def precompute_split(
             )
         return precompute_pos_fullrow(
             dg, links, y, node_label=cfg.node_label,
-            max_label_dist=cfg.max_label_dist, **kw,
+            max_label_dist=cfg.max_label_dist, seed=cfg.seed, **kw,
         )
     kw.update(seed=cfg.seed, rw_m=cfg.m, rw_M=cfg.M)
     if cfg.sign_type == "hybrid":

@@ -9,11 +9,13 @@ Semantics preserved from the reference (utils.py:47-85):
 - fringe expansion from {src, dst} for ``num_hops`` hops;
 - node ordering [src, dst, hop-1 nodes, hop-2 nodes, ...], ties by node id;
 - target-link removal A[0,1] = A[1,0] = 0;
-- subgraphs larger than the pad ``max_nodes`` keep the closest-hop nodes.
-
-Per-hop sampling (``ratio_per_hop < 1`` or ``max_nodes_per_hop``) draws
-from ``jax.random`` in the JAX package, which torch cannot reproduce; it is
-not ported yet and raises.
+- subgraphs larger than the pad ``max_nodes`` keep the closest-hop nodes;
+- optional per-hop down-sampling ``ratio_per_hop`` / cap
+  ``max_nodes_per_hop`` (utils.py:66-70), as the JAX package does it: each
+  link keeps the newly reached nodes of lowest priority, the priorities
+  being ``jax.random``'s uniforms for (link seed, hop, node), which
+  ``sampling/prng.py`` reproduces bit for bit. Per-link seeds make the
+  sampled set independent of how links are batched.
 """
 from __future__ import annotations
 
@@ -23,7 +25,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from s3grl_tpu_torch import native
 from s3grl_tpu_torch.data.graph import Graph
+from s3grl_tpu_torch.sampling.prng import uniforms
 
 _UNREACHED = 0x3FFFFFFF
 
@@ -82,6 +86,16 @@ class DeviceGraph:
     def device(self) -> torch.device:
         return self.nbr.device
 
+    def host_csr(self) -> tuple[np.ndarray, np.ndarray]:
+        """(row_ptr [N+1], col_idx [E]) of the edge list by the native host
+        core, built once per graph."""
+        csr = self.__dict__.get("_host_csr")
+        if csr is None:
+            src, dst, _ = self.host_edges()
+            csr = native.build_csr(src, dst, None, self.num_nodes)[:2]
+            object.__setattr__(self, "_host_csr", csr)
+        return csr
+
     def host_edges(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(src, dst, weight) as host numpy arrays."""
         if self.host:
@@ -125,13 +139,42 @@ def dense_adjacency(sub: SubgraphBatch) -> torch.Tensor:
     return adj.scatter_add_(2, sub.nbr_local.long(), sub.nbr_w)
 
 
-def _check_no_sampling(ratio_per_hop: float, max_nodes_per_hop) -> None:
-    if ratio_per_hop < 1.0 or max_nodes_per_hop is not None:
-        raise NotImplementedError(
-            "per-hop sampling (ratio_per_hop < 1 or max_nodes_per_hop) is "
-            "not ported yet: the JAX package draws it from jax.random, "
-            "which torch cannot reproduce (ROADMAP, deferred by slice 1)"
-        )
+def samples(ratio_per_hop: float, max_nodes_per_hop: Optional[int]) -> bool:
+    """Whether these flags ask for per-hop sampling."""
+    return ratio_per_hop < 1.0 or max_nodes_per_hop is not None
+
+
+def link_seeds_of(seed: int, num_links: int) -> np.ndarray:
+    """The JAX package's per-link seeds: ``seed * 1_000_003 + i`` as int32."""
+    return (np.int64(seed) * 1_000_003 + np.arange(num_links)).astype(np.int32)
+
+
+def _sample_newly(
+    newly: torch.Tensor,  # [B, N] bool
+    link_seeds: torch.Tensor,  # [B]
+    hop: int,
+    ratio_per_hop: float,
+    max_nodes_per_hop: Optional[int],
+) -> torch.Tensor:
+    """Keep, of each link's newly reached nodes, the ``keep_n`` of lowest
+    priority (JAX extraction.py:182-217): the priority is 2.0 off the new
+    nodes, a stable sort breaks ties by node id, and
+    ``keep_n = int32(f32(ratio_per_hop) * f32(count))``, at most
+    ``max_nodes_per_hop``. The uniforms are drawn only at the new nodes."""
+    B, N = newly.shape
+    b_ix, n_ix = newly.nonzero(as_tuple=True)
+    pri = torch.full((B, N), 2.0, dtype=torch.float32, device=newly.device)
+    pri[b_ix, n_ix] = uniforms(link_seeds[b_ix], hop, n_ix[:, None])[:, 0]
+    order = torch.sort(pri, dim=1, stable=True).indices
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(N, device=newly.device).expand(B, N))
+    keep_n = newly.sum(dim=1, keepdim=True)
+    if ratio_per_hop < 1.0:
+        ratio = torch.tensor(ratio_per_hop, dtype=torch.float32, device=newly.device)
+        keep_n = (ratio * keep_n.to(torch.float32)).to(torch.int32)
+    if max_nodes_per_hop is not None:
+        keep_n = torch.clamp(keep_n, max=max_nodes_per_hop)
+    return newly & (rank < keep_n)
 
 
 def _bfs_distances(
@@ -140,14 +183,18 @@ def _bfs_distances(
     num_hops: int,
     ratio_per_hop: float = 1.0,
     max_nodes_per_hop: Optional[int] = None,
+    link_seeds: Optional[torch.Tensor] = None,  # [B] per-link RNG seeds
 ) -> torch.Tensor:
     """Hop distances [B, N] (int32) from the union fringe of {src, dst}.
 
     One frontier scatter-add over the edge list per hop. The sum is only
     tested ``> 0`` and adds 0s and 1s, so the order of the float atomics
-    on the GPU cannot change the result.
+    on the GPU cannot change the result. Per-hop sampling needs
+    ``link_seeds`` and raises without them.
     """
-    _check_no_sampling(ratio_per_hop, max_nodes_per_hop)
+    sample = samples(ratio_per_hop, max_nodes_per_hop)
+    if sample and link_seeds is None:
+        raise ValueError("per-hop sampling needs link_seeds (one seed per link)")
     B = links.shape[0]
     N = dg.num_nodes
     links = links.long()
@@ -161,6 +208,10 @@ def _bfs_distances(
         reached = torch.zeros((B, N), dtype=torch.float32, device=links.device)
         reached.index_add_(1, dg.edge_dst, contrib)
         newly = (reached > 0) & (dist == _UNREACHED)
+        if sample:
+            newly = _sample_newly(
+                newly, link_seeds.to(links.device), hop, ratio_per_hop, max_nodes_per_hop
+            )
         dist = torch.where(newly, torch.full_like(dist, hop), dist)
     return dist
 
@@ -202,11 +253,14 @@ def extract_node_sets(
     max_nodes: int,
     ratio_per_hop: float = 1.0,
     max_nodes_per_hop: Optional[int] = None,
+    link_seeds: Optional[torch.Tensor] = None,
 ):
     """BFS + top-k selection only: (nodes, node_mask, sel_dist, sub_size)."""
     B = links.shape[0]
     N = dg.num_nodes
-    dist = _bfs_distances(dg, links, num_hops, ratio_per_hop, max_nodes_per_hop)
+    dist = _bfs_distances(
+        dg, links, num_hops, ratio_per_hop, max_nodes_per_hop, link_seeds
+    )
     visited = dist != _UNREACHED
     sub_size = visited.sum(dim=1).to(torch.int32)
     dist_clip = torch.clamp(dist, max=num_hops + 1)
@@ -280,6 +334,7 @@ def extract_subgraphs(
     max_nodes_per_hop: Optional[int] = None,
     remove_target_link: bool = True,
     binary_adj: bool = True,
+    link_seeds: Optional[torch.Tensor] = None,
 ) -> SubgraphBatch:
     """Extract padded enclosing subgraphs for a batch of links."""
     nodes, node_mask, sel_dist, sub_size = extract_node_sets(
@@ -289,6 +344,7 @@ def extract_subgraphs(
         max_nodes=max_nodes,
         ratio_per_hop=ratio_per_hop,
         max_nodes_per_hop=max_nodes_per_hop,
+        link_seeds=link_seeds,
     )
     return assemble_local_structure(
         dg,

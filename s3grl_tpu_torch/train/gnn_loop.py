@@ -35,6 +35,7 @@ from s3grl_tpu_torch.sampling.extraction import (
     DeviceGraph,
     dense_adjacency,
     extract_subgraphs,
+    link_seeds_of,
 )
 from s3grl_tpu_torch.sampling.labeling import label_nodes
 from s3grl_tpu_torch.train.logger import Logger
@@ -94,11 +95,15 @@ def static_cache_allowed(cfg: RunConfig) -> bool:
 def extract_and_label(
     dg: DeviceGraph, links: torch.Tensor, *, num_hops: int, max_nodes: int,
     node_label: str, max_iters: int, binary_adj: bool = True,
+    ratio_per_hop: float = 1.0, max_nodes_per_hop: Optional[int] = None,
+    link_seeds: Optional[torch.Tensor] = None,
 ):
     """(adj [B, S, S], z, node_mask [B, S], nodes [B, S]) for a link batch:
-    extraction, the dense adjacency, then the labels."""
+    extraction (sampled per hop with the links' seeds where asked), the
+    dense adjacency, then the labels."""
     sub = extract_subgraphs(dg, links, num_hops=num_hops, max_nodes=max_nodes,
-                            binary_adj=binary_adj)
+                            ratio_per_hop=ratio_per_hop, max_nodes_per_hop=max_nodes_per_hop,
+                            binary_adj=binary_adj, link_seeds=link_seeds)
     adj = dense_adjacency(sub)
     z = label_nodes(adj, sub.dist, sub.node_mask, node_label=node_label,
                     max_iters=max_iters)
@@ -180,16 +185,19 @@ def run_gnn_learning(
         ("test", cfg.test_percent),
     ):
         links, y = build_split_links(split, edge_split, percent, rng, neg_ratio=cfg.neg_ratio)
+        seeds = link_seeds_of(cfg.seed, len(links))
         sizes[split] = measure_subgraph_sizes(
-            dg, links.astype(np.int32), num_hops=cfg.num_hops,
+            dg, links.astype(np.int32), seeds, num_hops=cfg.num_hops,
             ratio_per_hop=cfg.ratio_per_hop, max_nodes_per_hop=cfg.max_nodes_per_hop,
         )
         splits[split] = (torch.as_tensor(links.astype(np.int64), device=dev),
-                         torch.as_tensor(y.astype(np.float32), device=dev))
+                         torch.as_tensor(y.astype(np.float32), device=dev),
+                         torch.as_tensor(seeds, device=dev))
     S, sortpool_k = pad_size_and_sortpool_k(cfg, sizes)
     use_x = cfg.use_feature and dg.x is not None
     label_kw = dict(num_hops=cfg.num_hops, max_nodes=S, node_label=cfg.node_label or "drnl",
-                    max_iters=min(cfg.max_label_dist, S), binary_adj=not cfg.use_edge_weight)
+                    max_iters=min(cfg.max_label_dist, S), binary_adj=not cfg.use_edge_weight,
+                    ratio_per_hop=cfg.ratio_per_hop, max_nodes_per_hop=cfg.max_nodes_per_hop)
 
     # Weights from a generator on the CPU, so a seeded run starts from the
     # same weights on every device; dropout masks from one on the device.
@@ -205,8 +213,9 @@ def run_gnn_learning(
     caches = {}
     if static_cache:
         cache_bsz = max(1, min(cfg.extract_batch_size, CACHE_ELEM_BUDGET // (S * S)))
-        for split, (links, _) in splits.items():
-            parts = [extract_and_label(dg, links[s : s + cache_bsz], **label_kw)[1:]
+        for split, (links, _, seeds) in splits.items():
+            parts = [extract_and_label(dg, links[s : s + cache_bsz],
+                                       link_seeds=seeds[s : s + cache_bsz], **label_kw)[1:]
                      for s in range(0, len(links), cache_bsz)]
             caches[split] = tuple(torch.cat(p) for p in zip(*parts))  # z, mask, nodes
     if dev.type == "cuda":
@@ -220,7 +229,8 @@ def run_gnn_learning(
             z, m, nodes = (c[idx] for c in caches[split])
             adj = batch_from_cache(dg, lb, nodes, m)
         else:
-            adj, z, m, nodes = extract_and_label(dg, lb, **label_kw)
+            adj, z, m, nodes = extract_and_label(dg, lb, link_seeds=splits[split][2][idx],
+                                                 **label_kw)
         x = dg.x[nodes.long()] * m[:, :, None].to(torch.float32) if use_x else None
         return adj, z, m, x
 

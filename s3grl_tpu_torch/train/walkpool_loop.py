@@ -22,6 +22,7 @@ mode that changes no real row's score).
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ from s3grl_tpu_torch.sampling.extraction import (
     DeviceGraph,
     dense_adjacency,
     extract_subgraphs,
+    link_seeds_of,
 )
 from s3grl_tpu_torch.sampling.labeling import label_nodes
 from s3grl_tpu_torch.train.logger import Logger
@@ -44,14 +46,17 @@ from s3grl_tpu_torch.train.metrics import evaluate_auc
 from s3grl_tpu_torch.utils.device import resolve_device
 
 
-def walkpool_batch(dg: DeviceGraph, links: torch.Tensor, cfg: RunConfig, S: int):
+def walkpool_batch(dg: DeviceGraph, links: torch.Tensor, cfg: RunConfig, S: int,
+                   link_seeds: Optional[torch.Tensor] = None):
     """(adj, z, mask, x) of a link batch: the subgraph without the target
     link, then the candidate link injected at slots (0, 1) before the DRNL
-    labels are made (JAX walkpool_loop.py:85-103)."""
+    labels are made (JAX walkpool_loop.py:85-103). ``max_nodes_per_hop``
+    samples each hop with the links' seeds; ``ratio_per_hop`` is not read,
+    as in the JAX package's WalkPool loop."""
     sub = extract_subgraphs(
         dg, links, num_hops=cfg.num_hops, max_nodes=S,
-        ratio_per_hop=cfg.ratio_per_hop, max_nodes_per_hop=cfg.max_nodes_per_hop,
-        remove_target_link=True,
+        max_nodes_per_hop=cfg.max_nodes_per_hop, remove_target_link=True,
+        link_seeds=link_seeds,
     )
     adj = dense_adjacency(sub)
     adj[:, 0, 1] = 1.0
@@ -95,12 +100,14 @@ def run_walkpool_learning(
         ("test", cfg.test_percent),
     ):
         links, y = build_split_links(split, edge_split, percent, rng, neg_ratio=cfg.neg_ratio)
+        seeds = link_seeds_of(cfg.seed, len(links))
         sizes.append(measure_subgraph_sizes(
-            dg, links.astype(np.int32), num_hops=cfg.num_hops,
-            ratio_per_hop=cfg.ratio_per_hop, max_nodes_per_hop=cfg.max_nodes_per_hop,
+            dg, links.astype(np.int32), seeds, num_hops=cfg.num_hops,
+            max_nodes_per_hop=cfg.max_nodes_per_hop,
         ))
         splits[split] = (torch.as_tensor(links.astype(np.int64), device=dev),
-                         torch.as_tensor(y.astype(np.float32), device=dev))
+                         torch.as_tensor(y.astype(np.float32), device=dev),
+                         torch.as_tensor(seeds, device=dev))
     S = min(round_up_pow2(max(int(z.max()) for z in sizes)), cfg.max_subgraph_nodes)
 
     # Weights from a generator on the CPU, so a seeded run starts from the
@@ -122,15 +129,15 @@ def run_walkpool_learning(
     @torch.no_grad()
     def predict_split(split: str) -> np.ndarray:
         model.eval()
-        links = splits[split][0]
-        outs = [model(*walkpool_batch(dg, links[s : s + bsz], cfg, S))
+        links, _, seeds = splits[split]
+        outs = [model(*walkpool_batch(dg, links[s : s + bsz], cfg, S, seeds[s : s + bsz]))
                 for s in range(0, len(links), bsz)]
         model.train()
         return torch.cat(outs).cpu().numpy()
 
     loggers = {"AUC": Logger(cfg.runs), "AP": Logger(cfg.runs)}
     np_rng = np.random.default_rng(cfg.seed)
-    train_links, train_y = splits["train"]
+    train_links, train_y, train_seeds = splits["train"]
     L = len(train_y)
     steps = (L + bsz - 1) // bsz
     pad_n = steps * bsz - L
@@ -145,7 +152,8 @@ def run_walkpool_learning(
         for s in range(steps):
             idx = perm[s * bsz : (s + 1) * bsz]
             wb = w_full[s * bsz : (s + 1) * bsz]
-            out = model(*walkpool_batch(dg, train_links[idx], cfg, S), generator=drop_gen)
+            out = model(*walkpool_batch(dg, train_links[idx], cfg, S, train_seeds[idx]),
+                        generator=drop_gen)
             yb = train_y[idx]
             losses = (out - yb) ** 2 if mse else bce_with_logits(out, yb)
             loss = (losses * wb).sum() / torch.clamp(wb.sum(), min=1.0)

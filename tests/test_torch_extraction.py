@@ -83,8 +83,10 @@ def test_sym_normalize_and_pick_bucket():
 
 
 def test_per_hop_sampling_raises():
+    """Per-hop sampling is ported (tests/test_torch_sampling.py); without
+    per-link seeds it raises, as the JAX package asserts."""
     _, td = _pair(random_edges(np.random.default_rng(1), n=50, e=100), 50)
-    with pytest.raises(NotImplementedError, match="per-hop sampling"):
+    with pytest.raises(ValueError, match="per-hop sampling needs link_seeds"):
         text.extract_node_sets(
             td, torch.zeros((2, 2), dtype=torch.int32), num_hops=1,
             max_nodes=8, ratio_per_hop=0.5,

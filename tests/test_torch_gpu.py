@@ -440,6 +440,7 @@ REPEAT_PATHS = {
     "SEAL": dict(model="DGCNN", node_label="drnl", init_features="", use_feature=False,
                  hidden_channels=32, num_layers=3),
     "PoS-n2v": dict(init_features="n2v", n2v_dim=16, pool_operatorwise=True),
+    "PoS-sampled": dict(ratio_per_hop=0.5),
 }
 
 
@@ -467,3 +468,83 @@ def test_seeded_run_repeats_on_the_card(path, tmp_path):
         best.append(run_sgrl_learning(cfg, graph, split, device=dev)[1])
     assert np.isfinite(best[0])
     assert best[0] == best[1], best
+
+
+# ---- Per-hop sampling and the large-graph route ----
+
+
+@pytest.mark.gpu
+def test_uniforms_on_the_card_equal_the_cpu():
+    from s3grl_tpu_torch.sampling.prng import uniforms
+
+    dev = _cuda(CARD_VS_CPU)
+    seeds = torch.tensor([0, 11, 2**20 + 7, -5, 3_000_012, 2**31 - 1], dtype=torch.int32)
+    ids = torch.randint(0, 200_000, (6, 5000), generator=torch.Generator().manual_seed(1))
+    for hop in (1, 2, 3):
+        want = uniforms(seeds, hop, ids)
+        got = uniforms(seeds.to(dev), hop, ids.to(dev)).cpu()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _hub_batch(dev, B=4, S=1024, F=128):
+    """B observed links of the BlogCatalog-sized power-law graph (hub degree
+    3,377; a global table 3,392 wide) with F normal feature columns on the
+    card, and their 2-hop node sets at S = 1,024 from the host core."""
+    from s3grl_tpu_torch import native
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from torch_port_helpers import blogcatalog_like_edges
+
+    ei = blogcatalog_like_edges(1)
+    n = int(ei.max()) + 1
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(n, F)).astype(np.float32)
+    dg = DeviceGraph.from_graph(Graph(num_nodes=n, edge_index=ei, x=x), device=dev)
+    links = ei[:, rng.choice(ei.shape[1], B)].T.astype(np.int32)
+    nd, _ = native.khop_nodes(*dg.host_csr(), links, 2, S)
+    return dg, links, nd
+
+
+@pytest.mark.gpu
+def test_kernel_at_the_hub_shape_matches_plain_version():
+    """``pos_power_rows`` at the hub-dense shape: global ids on the
+    3,392-wide global table, whose rows the selector kernel reads twice;
+    PoS+ rows (intersection CCN, R = 34) included."""
+    from s3grl_tpu_torch.operators.pos import global_kernel_inputs
+
+    dev = _cuda()
+    dg, links, nd = _hub_batch(dev)
+    nodes = torch.as_tensor(np.where(nd >= 0, nd, 0), device=dev)
+    mask = torch.as_tensor(nd >= 0, device=dev)
+    for ccn in (0, 32):
+        sel, nbr, w, x, row_ids, _ = global_kernel_inputs(
+            dg, torch.as_tensor(links, device=dev), nodes, mask,
+            max_ccn=ccn, strategy="intersection")
+        got = pos_power_rows(sel, nbr, w, x, sign_k=3, row_ids=row_ids)
+        want = pos_power_rows_reference(sel, nbr, w, x, sign_k=3, row_ids=row_ids)
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+def test_host_and_device_routes_give_the_same_dataset_on_the_card(monkeypatch):
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.operators.pos import precompute_pos
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from torch_port_helpers import random_edges
+
+    dev = _cuda("it holds the card's two routes against each other")
+    rng = np.random.default_rng(5)
+    n = 3000
+    ei = random_edges(rng, n=n, e=30_000)
+    x = rng.normal(size=(n, 16)).astype(np.float32)
+    dg = DeviceGraph.from_graph(Graph(num_nodes=n, edge_index=ei, x=x), device=dev)
+    links = rng.integers(0, n, (600, 2)).astype(np.int32)
+    y = np.ones(600, np.float32)
+    kw = dict(num_hops=2, sign_k=3, max_subgraph_nodes=512, k_heuristic=1,
+              k_node_set_strategy="union", max_ccn=16, device=dev)
+    monkeypatch.setenv("S3GRL_TPU_HOST_EXTRACT", "0")
+    want = precompute_pos(dg, links, y, **kw)
+    monkeypatch.setenv("S3GRL_TPU_HOST_EXTRACT", "1")
+    got = precompute_pos(dg, links, y, **kw)
+    assert torch.equal(got.row_mask, want.row_mask)
+    assert torch.equal(got.xs, want.xs)

@@ -268,11 +268,16 @@ def test_runner_takes_the_init_walk_and_heuristic_configs(usair_split, name, tmp
     (dict(m=3, M=5, optimize_sign=False, node_label="drnl"), "ScaLed rw sampling"),
 ])
 def test_what_is_not_ported_still_raises(usair_split, fields, what, tmp_path):
-    """The WalkPool, profile and OGB routes run now; each still refuses
-    per-hop sampling, which is not ported, and the full-row flow refuses
-    ScaLed's walks, as in the JAX package."""
+    """The full-row flow refuses ScaLed's walks, as in the JAX package. The
+    WalkPool, profile and OGB routes refused per-hop sampling until it was
+    ported; each now runs with it, at test size."""
     graph, split = usair_split
-    cfg = RunConfig(**{**SMALL, **fields, "results_dir": str(tmp_path)})
-    match = what if what == "ScaLed rw sampling" else "per-hop sampling"
-    with pytest.raises(NotImplementedError, match=match):
-        run_sgrl_learning(cfg, graph, split, device="cpu")
+    if what == "ScaLed rw sampling":
+        cfg = RunConfig(**{**SMALL, **fields, "results_dir": str(tmp_path)})
+        with pytest.raises(NotImplementedError, match=what):
+            run_sgrl_learning(cfg, graph, split, device="cpu")
+        return
+    cfg = RunConfig(**{**SMALL, **fields, "results_dir": str(tmp_path)}, epochs=1,
+                    train_percent=5.0, val_percent=20.0, test_percent=20.0)
+    _, best, ttimes, _, _ = run_sgrl_learning(cfg, graph, split, device="cpu")
+    assert np.isfinite(best) and best > 0.0 and len(ttimes) == 1
