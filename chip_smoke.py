@@ -64,7 +64,15 @@ non-zero without the final line:
     ``ratio_per_hop`` 0.5 and SEAL with ``max_nodes_per_hop`` 10, each
     one's prep, train rate, peak memory and best test AUC against the JAX
     package's (the first also in the repeat phase);
-13. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
+13. multi-device (``phase_multi_device``): ``s3grl_tpu_torch/parallel`` at
+    world size 1 over NCCL in this process (the sharded PoS, the
+    row-partitioned chain and the sharded SoP of the main path's train split
+    bit for bit against one process, one epoch of data-parallel training,
+    ``scaling.measure(1)`` at the JAX harness's defaults), ``bsr_spmm``
+    alone on rank 0's 166-row shard of a 2-way partition against its plain
+    version, then the same checks in two ranks spawned on the one card over
+    gloo (NCCL takes one rank a card);
+14. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
     by ``torch.profiler``, on inputs built again; then one profiled
     1-epoch run of each path of ``IDLE_PATHS`` (one of each kind: a label
     path, a ScaLed path, an init path, a heuristic, WalkPool) for its
@@ -560,40 +568,58 @@ def phase_kernels(cfg, graph, split, power_limit: str):
     return rows
 
 
-def bsr_inputs(src, dst, n):
-    """M = the sym-normalized adjacency of (src, dst) on the card: its
-    ``blockify`` layout, its edge list (src, dst, w) and one torch CSR
-    tensor of it."""
+def bsr_inputs(src, dst, n, w=None, rows=None):
+    """M on the card, ``M[dst, src] = w``: by default the sym-normalized
+    adjacency of (src, dst), n x n, in its ``blockify`` layout; with ``w``
+    and ``rows`` a [rows, n] row shard, as the row-partitioned chain builds
+    it (``csr_matrix``, CSR alone). That, its edge list (src, dst, w) and
+    one torch CSR tensor of it."""
     import torch
 
     from s3grl_tpu_torch.ops.spmm import normalized_adjacency_weights
-    from s3grl_tpu_torch.ops.spmm_kernel import blockify
+    from s3grl_tpu_torch.ops.spmm_kernel import blockify, csr_matrix
 
-    w = normalized_adjacency_weights(
-        torch.as_tensor(src, dtype=torch.int64), torch.as_tensor(dst, dtype=torch.int64), n
-    ).numpy()
-    adj = blockify(src, dst, w, n, device="cuda")
+    if w is None:
+        w = normalized_adjacency_weights(
+            torch.as_tensor(src, dtype=torch.int64), torch.as_tensor(dst, dtype=torch.int64), n
+        ).numpy()
+    if rows is None:
+        rows, adj = n, blockify(src, dst, w, n, device="cuda")
+    else:
+        adj = csr_matrix(src, dst, w, rows, n, device="cuda")
     s_t = torch.as_tensor(src, dtype=torch.int64, device="cuda")
     d_t = torch.as_tensor(dst, dtype=torch.int64, device="cuda")
     w_t = torch.as_tensor(w, device="cuda")
     with warnings.catch_warnings():  # torch's notes on sparse invariants and beta CSR
         warnings.simplefilter("ignore", UserWarning)
-        m_csr = torch.sparse_coo_tensor(torch.stack([d_t, s_t]), w_t, (n, n))
+        m_csr = torch.sparse_coo_tensor(torch.stack([d_t, s_t]), w_t, (rows, n))
         m_csr = m_csr.coalesce().to_sparse_csr()
     return adj, (s_t, d_t, w_t), m_csr
 
 
-def bsr_case(label, src, dst, n, x, power_k=0):
-    """``bsr_spmm`` on M = the sym-normalized adjacency of (src, dst) and X:
-    checked against its plain version (and, with ``power_k``, the K-step
-    chain against the plain chain), timed beside the plain version, the
-    edge-list route and one ``torch.sparse.mm`` of M in CSR form."""
+def bsr_case(label, src, dst, n, x, power_k=0, w=None, rows=None):
+    """``bsr_spmm`` on M = the sym-normalized adjacency of (src, dst) and X
+    (or, with ``w`` and ``rows``, a [rows, n] row shard): checked against
+    its plain version (``bsr_spmm_reference``, or a shard's
+    ``csr_spmm_reference``; and, with ``power_k``, the K-step chain
+    against the plain chain), timed beside the plain version, the
+    edge-list route (a square M only) and one ``torch.sparse.mm`` of M in
+    CSR form."""
     import torch
 
     from s3grl_tpu_torch.ops.spmm import edge_list, spmm
-    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm, bsr_spmm_reference, power_chain
+    from s3grl_tpu_torch.ops.spmm_kernel import (
+        BlockedAdjacency,
+        bsr_spmm,
+        bsr_spmm_reference,
+        csr_spmm_reference,
+        power_chain,
+    )
 
-    adj, (s_t, d_t, w_t), m_csr = bsr_inputs(src, dst, n)
+    adj, (s_t, d_t, w_t), m_csr = bsr_inputs(src, dst, n, w, rows)
+    rows = adj.num_nodes
+    blocked = isinstance(adj, BlockedAdjacency)
+    plain = bsr_spmm_reference if blocked else csr_spmm_reference
     c = int(x.shape[1])
 
     def check(got, want, what):
@@ -606,44 +632,51 @@ def bsr_case(label, src, dst, n, x, power_k=0):
             )
         return diff
 
-    max_abs = check(bsr_spmm(adj, x), bsr_spmm_reference(adj, x), "one product")
+    max_abs = check(bsr_spmm(adj, x), plain(adj, x), "one product")
     if power_k:
         want = [x]
         for _ in range(power_k):
-            want.append(bsr_spmm_reference(adj, want[-1]))
+            want.append(plain(adj, want[-1]))
         chain_err = check(power_chain(adj, x, power_k), torch.stack(want[1:]),
                           f"K={power_k} chain")
         max_abs = max(max_abs, chain_err)
     torch.cuda.synchronize()
 
     ms = cuda_ms(lambda: bsr_spmm(adj, x), reps=20)
-    plain_ms = cuda_ms(lambda: bsr_spmm_reference(adj, x), reps=3)
-    edges = edge_list(s_t, d_t, w_t, n)
-    edge_ms = cuda_ms(lambda: spmm(edges, x), reps=20)
+    plain_ms = cuda_ms(lambda: plain(adj, x), reps=3)
+    edge_ms = None
+    if rows == n:
+        edges = edge_list(s_t, d_t, w_t, n)
+        edge_ms = cuda_ms(lambda: spmm(edges, x), reps=20)
     library_ms = cuda_ms(lambda: torch.sparse.mm(m_csr, x), reps=20)
 
     # The bound is the least the function Y = M X needs: the nonzeros (value
     # and column id, CSR row pointers), X read and Y written once, and one
     # multiply-add per nonzero and column. The dense-block layout's own
     # figure (every block whole, 2*NB*128^2*C FLOP, the JAX cost estimate's)
-    # is printed beside it.
-    nb, bs = adj.num_blocks, int(adj.blocks.shape[1])
+    # is printed beside it (a blocked M only: a shard has no blocks).
     nnz = int(adj.csr_vals.numel())
-    n_bytes = 8 * nnz + 4 * (n + 1) + 8 * n * c
+    n_bytes = 8 * nnz + 4 * (rows + 1) + 4 * (n + rows) * c
     flops = 2.0 * nnz * c
     bound_ms, by = bound_ms_of(n_bytes, flops)
-    dense_bytes = 4 * (nb * bs * bs + 2 * n * c + nb + adj.num_row_blocks + 1)
-    dense_flops = 2.0 * nb * bs * bs * c
-    dense_ms, dense_by = bound_ms_of(dense_bytes, dense_flops)
-    print(f"  bsr_spmm {label}: N={n} C={c} NB={nb} nnz={nnz} max_abs_err {max_abs:.3e} "
-          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms edge-list {edge_ms:.4f} ms "
+    dense_ms, dense_note, nb = None, "", "n/a (CSR alone)"
+    if blocked:
+        nb, bs = adj.num_blocks, int(adj.blocks.shape[1])
+        dense_bytes = 4 * (nb * bs * bs + (n + rows) * c + nb + adj.num_row_blocks + 1)
+        dense_flops = 2.0 * nb * bs * bs * c
+        dense_ms, dense_by = bound_ms_of(dense_bytes, dense_flops)
+        dense_note = (f"; dense-block layout's bound {dense_ms:.4f} ms ({dense_by}: "
+                      f"{dense_bytes / 1e6:.2f} MB, {dense_flops / 1e9:.3f} GFLOP)")
+    edge = "n/a (a row shard)" if edge_ms is None else f"{edge_ms:.4f} ms"
+    shape = f"N={n} C={c}" if rows == n else f"rows={rows} N_pad={n} C={c}"
+    print(f"  bsr_spmm {label}: {shape} NB={nb} nnz={nnz} max_abs_err {max_abs:.3e} "
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms edge-list {edge} "
           f"torch.sparse.mm (CSR) {library_ms:.4f} ms bound {bound_ms:.4f} ms "
           f"({by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP, 2*nnz*C) "
-          f"share of bound {bound_ms / ms:.4f}; dense-block layout's bound {dense_ms:.4f} ms "
-          f"({dense_by}: {dense_bytes / 1e6:.2f} MB, {dense_flops / 1e9:.3f} GFLOP)")
+          f"share of bound {bound_ms / ms:.4f}{dense_note}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, edge_list_ms=edge_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
-                bound_ms_dense_blocks=dense_ms, shape=f"{label} N={n} C={c} NB={nb} nnz={nnz}")
+                bound_ms_dense_blocks=dense_ms, shape=f"{label} {shape} NB={nb} nnz={nnz}")
 
 
 def sop_batch_columns(cfg, graph, split):
@@ -1458,6 +1491,164 @@ def phase_sampled_paths(cfg, graph, split) -> dict:
     return rows
 
 
+def multi_device_checks(mesh, cfg, graph, split) -> dict:
+    """On one rank of ``mesh`` (every rank runs it): the main path's train
+    split through ``precompute_pos_sharded``, the row-partitioned chain and
+    ``precompute_sop_sharded``, each gathered and held bit for bit against
+    its single-process counterpart (which this rank computes first), then
+    one epoch of data-parallel SIGNNet training. Returns each piece's
+    seconds and kernel launches (counts set to 0 just before each and read
+    just after) and the training rate."""
+    import torch
+
+    from s3grl_tpu_torch.data.features import init_features
+    from s3grl_tpu_torch.operators.pos import precompute_pos
+    from s3grl_tpu_torch.operators.sop import host_normalized_edges, precompute_sop
+    from s3grl_tpu_torch.ops.spmm_kernel import blockify, power_chain
+    from s3grl_tpu_torch.parallel import dist as pdist
+    from s3grl_tpu_torch.parallel.scaling import _train_rate
+    from s3grl_tpu_torch.runner import build_split_links
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from s3grl_tpu_torch.utils.seeding import seed_everything
+
+    dg = DeviceGraph.from_graph(init_features(graph, cfg.init_features), device="cuda")
+    rng, _ = seed_everything(cfg.seed)
+    links, y = build_split_links("train", split, cfg.train_percent, rng)
+    links, L, K, N = links.astype(np.int32), len(links), cfg.sign_k, graph.num_nodes
+    kw = dict(num_hops=cfg.num_hops, sign_k=K, buckets=tuple(cfg.subgraph_buckets),
+              batch_size=cfg.extract_batch_size, max_subgraph_nodes=cfg.max_subgraph_nodes,
+              seed=cfg.seed)
+    one_pos = precompute_pos(dg, links, y, device="cuda", **kw)
+    one_sop = precompute_sop(dg, links, y, sign_k=K, device="cuda")
+    src, dst, w = host_normalized_edges(dg)
+    one_chain = power_chain(blockify(src, dst, w, N, device="cuda"), dg.x, K)
+    out = {}
+
+    def timed_piece(name, fn):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out[name] = dict(s=time.perf_counter() - t0, launches=kernel_counts())
+        return result
+
+    pos = timed_piece("PoS sharded", lambda: pdist.precompute_pos_sharded(mesh, dg, links, y,
+                                                                        **kw))
+    full = pdist.gather_dataset(mesh, pos, L)
+    if not (torch.equal(full.xs, one_pos.xs) and torch.equal(full.row_mask, one_pos.row_mask)):
+        raise AssertionError("precompute_pos_sharded differs from precompute_pos")
+    chain = timed_piece("SoP chain", lambda: pdist.dist_power_chain(mesh, src, dst, w, dg.x, K))
+    if not torch.equal(pdist.gather_rows(mesh, chain, N), one_chain):
+        raise AssertionError("dist_power_chain differs from power_chain")
+    sop = timed_piece("SoP sharded", lambda: pdist.precompute_sop_sharded(mesh, dg, links, y,
+                                                                        sign_k=K))
+    if not torch.equal(pdist.gather_dataset(mesh, sop, L).xs, one_sop.xs):
+        raise AssertionError("precompute_sop_sharded differs from precompute_sop")
+    rate, _ = timed_piece("train", lambda: _train_rate(
+        mesh, pos, epochs=1, hidden=cfg.hidden_channels, seed=cfg.seed))
+    out["train"]["links_per_s"] = rate
+    for name in ("PoS sharded", "SoP sharded"):
+        kernel = "pos_power_rows" if name.startswith("PoS") else "bsr_spmm"
+        if out[name]["launches"][kernel] == 0:
+            raise AssertionError(f"{name} never launched {kernel}")
+    out["links"] = L
+    return out
+
+
+def multi_device_rank(rank, world, init_method, cfg, graph, split) -> dict:
+    """A spawned rank of the two-rank check: gloo on the one card."""
+    import torch.distributed as dist
+
+    from s3grl_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    init_distributed(rank, world, "cuda", init_method=init_method, backend="gloo")
+    out = multi_device_checks(make_mesh(), cfg, graph, split)
+    out["backend"] = dist.get_backend()
+    return out
+
+
+def shard_bsr_case(cfg, graph) -> dict:
+    """``bsr_spmm`` alone (no collective) on rank 0's shard of a 2-way row
+    partition of the main path's chain: [166, 332] times the degree
+    features [332, 1,025]; its row as ``bsr_case`` gives it, with its device
+    time and ``torch.sparse.mm``'s."""
+    import torch
+
+    from s3grl_tpu_torch.data.features import init_features
+    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm
+    from s3grl_tpu_torch.parallel.dist import partition_edges_by_owner
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from s3grl_tpu_torch.operators.sop import host_normalized_edges
+
+    g = init_features(graph, cfg.init_features)
+    src, dst, w = host_normalized_edges(DeviceGraph.from_graph(g, device="cuda"))
+    src_p, dstl_p, w_p, rows = partition_edges_by_owner(src, dst, w, g.num_nodes, 2)
+    keep = w_p[0] != 0
+    n_pad = 2 * rows
+    x = torch.zeros((n_pad, g.x.shape[1]), dtype=torch.float32, device="cuda")
+    x[: g.num_nodes] = torch.as_tensor(g.x, dtype=torch.float32)
+    args = (src_p[0][keep], dstl_p[0][keep], n_pad, x)
+    row = bsr_case("2-way row shard (rank 0) of the SoP chain", *args, w=w_p[0][keep],
+                   rows=rows)
+    adj, _, m_csr = bsr_inputs(*args[:3], w=w_p[0][keep], rows=rows)
+    dev = device_ms_by_kernel(lambda: bsr_spmm(adj, x), reps=20)
+    lib_dev = device_ms_by_kernel(lambda: torch.sparse.mm(m_csr, x), reps=20)
+    row["device_ms"] = sum(v for k, v in dev.items() if k.startswith("csr_spmm"))
+    row["library_device_ms"] = sum(lib_dev.values())
+    print(f"  bsr_spmm row shard: kernel {row['device_ms']:.4f} ms device (share of bound "
+          f"{row['bound_ms'] / row['device_ms']:.3f}); torch.sparse.mm "
+          f"{row['library_device_ms']:.4f} ms ({fmt_device(lib_dev)})")
+    return row
+
+
+def phase_multi_device(cfg, graph, split, power_limit: str) -> dict:
+    """``s3grl_tpu_torch/parallel`` on the card. World size 1 over NCCL, in
+    this process (the collectives present, trivial): the main path's
+    sharded PoS, chain and SoP bit for bit against one process, one epoch
+    of data-parallel training, ``scaling.measure(1)`` at the JAX harness's
+    defaults; then ``bsr_spmm`` on a 2-way row shard. Then the same checks
+    in two spawned ranks on the one card over gloo, which takes the card's
+    tensors (NCCL refuses two ranks on one device). Returns each piece's
+    launches and rows."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from s3grl_tpu_torch.parallel import scaling
+    from s3grl_tpu_torch.parallel.mesh import init_distributed, make_mesh, run_ranks
+
+    print(f"multi-device phase: card {power_limit}")
+    store = tempfile.mkdtemp(prefix="s3grl_rendezvous_")
+    init_distributed(0, 1, "cuda", init_method=f"file://{os.path.join(store, 'store')}")
+    print(f"  world 1: backend {dist.get_backend()}")
+    one = multi_device_checks(make_mesh(), cfg, graph, split)
+    t0 = time.perf_counter()
+    row = scaling.measure(1)
+    print(f"  world 1 ({one['links']} train links): " + "; ".join(
+        f"{k} {v['s']:.3f} s, launches {v['launches']}" for k, v in one.items()
+        if isinstance(v, dict)) + f"; train 1 epoch {one['train']['links_per_s']:.1f} links/s; "
+        "sharded PoS, chain and SoP equal to one process bit for bit")
+    print(f"  scaling.measure(1) ({time.perf_counter() - t0:.1f} s): {json.dumps(row)}")
+    dist.destroy_process_group()
+    shutil.rmtree(store, ignore_errors=True)
+    shard = shard_bsr_case(cfg, graph)
+    launches = {f"multi-device {k} (world 1)": v["launches"] for k, v in one.items()
+                if isinstance(v, dict)}
+    t0 = time.perf_counter()
+    two = run_ranks(multi_device_rank, 2, cfg, graph, split, timeout_s=300)
+    for r, res in enumerate(two):
+        print(f"  2 ranks on one card, rank {r} ({res['backend']}): " + "; ".join(
+            f"{k} {v['s']:.3f} s, launches {v['launches']}" for k, v in res.items()
+            if isinstance(v, dict)) + f"; train 1 epoch {res['train']['links_per_s']:.1f} "
+            "links/s (both ranks share the card)")
+        launches.update({f"multi-device {k} (rank {r} of 2, gloo)": v["launches"]
+                         for k, v in res.items() if isinstance(v, dict)})
+    print(f"  2 ranks on one card: equal to one process bit for bit "
+          f"({time.perf_counter() - t0:.1f} s with the ranks' start)")
+    return dict(launches=launches, world1=one, scaling=row, shard=shard, two=two)
+
+
 def phase_idle(cfg, graph, split, power_limit: str) -> None:
     """The device's idle share of each path of IDLE_PATHS: one 1-epoch run
     under ``torch.profiler`` (prep and eval included), 1 - busy / wall."""
@@ -1525,6 +1716,7 @@ def main(argv=None) -> int:
                "OGB": timed("OGB", phase_ogb, cfg, graph, split)}
     large = timed("large graphs", phase_large_graphs, cfg, graph, split, power_limit)
     sampled = timed("sampled paths", phase_sampled_paths, cfg, graph, split)
+    multi = timed("multi-device", phase_multi_device, cfg, graph, split, power_limit)
     timed("device times", phase_device_times, cfg, graph, split, rows, bsr_rows, power_limit)
     timed("idle", phase_idle, cfg, graph, split, power_limit)
     bsr_main, bsr_batch = bsr_rows[0], bsr_rows[1]
@@ -1541,9 +1733,13 @@ def main(argv=None) -> int:
                       **{f"repeat {t} (2 runs)": r[name] for t, r in repeat.items()},
                       **{t: r[name] for t, r in tooling.items()},
                       **{t: r[name] for t, r in large["launches"].items()},
-                      **{t: r[name] for t, r in sampled.items()}}
+                      **{t: r[name] for t, r in sampled.items()},
+                      **{t: r[name] for t, r in multi["launches"].items()}}
                for name in WRAPPERS}
     local = {k: v for k, v in rows.items() if k.split()[0] in SCALED_PATHS}
+    print("multi-device: " + json.dumps({
+        "world1": multi["world1"], "scaling_measure_1": multi["scaling"],
+        "two_ranks_one_card_gloo": multi["two"]}))
     print(f"total {time.perf_counter() - t0:.1f} s (by phase, s: {'; '.join(marks)})")
     print(power_limit)
     print(json.dumps({"kernels": [{
@@ -1572,6 +1768,7 @@ def main(argv=None) -> int:
             "launches": large["launches"][" ".join(k.split()[:2])]["pos_power_rows"]}
             for k, v in rows.items() if k.startswith("hub ")],
         "bfs_crossover": large["crossover"],
+        "multi_device_launches": multi["world1"]["PoS sharded"]["launches"]["pos_power_rows"],
     }, {
         "name": "bsr_spmm", "route": "cuda",
         "source": "s3grl_tpu_torch/csrc/bsr_spmm.cu",
@@ -1587,6 +1784,10 @@ def main(argv=None) -> int:
         "sop_batch": {k: bsr_batch[k] for k in (
             "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms", "edge_list_ms")},
+        "row_shard": {k: multi["shard"][k] for k in (
+            "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms")},
+        "multi_device_launches": multi["world1"]["SoP sharded"]["launches"]["bsr_spmm"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

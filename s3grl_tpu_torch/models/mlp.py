@@ -8,6 +8,9 @@ U(±1/sqrt(fan_in)) for weight and bias, as in the JAX package's ``Dense``.
 
 Padded CCN rows must not enter BatchNorm statistics, so the norm layer is
 mask-aware (statistics over valid rows only), as in the JAX package.
+Under data parallelism each norm layer sums its statistics over the ranks
+of its ``group``, so a step on n ranks normalizes over the global batch,
+as the JAX package's sharded step does.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 import torch.nn.functional as Fn
 
@@ -27,6 +31,25 @@ def _linear(in_features: int, out_features: int, generator) -> nn.Linear:
         lin.weight.uniform_(-bound, bound, generator=generator)
         lin.bias.uniform_(-bound, bound, generator=generator)
     return lin
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """All-reduce (sum) over a process group, forward and backward: every
+    rank's loss reads the sum, so each rank's gradient of it is the sum of
+    the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
 class MaskedBatchNorm(nn.Module):
@@ -46,12 +69,33 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        # A torch.distributed group whose ranks each hold a share of the
+        # batch (``parallel/mesh.data_parallel`` sets it): the statistics
+        # then span the whole batch, as in one process.
+        self.group = None
+
+    def _group_stats(self, xf: torch.Tensor, mask: Optional[torch.Tensor]):
+        """(n, mean, biased var) over every rank's valid rows: one
+        all-reduce of [count, sum, sum of squares], differentiable (its
+        backward all-reduces the gradients, since every rank's loss reads
+        the statistics)."""
+        C = xf.shape[1]
+        m = (torch.ones(xf.shape[0], dtype=xf.dtype, device=xf.device) if mask is None
+             else mask.reshape(-1).to(xf.dtype))
+        xm = xf * m[:, None]
+        stats = _SumOverGroup.apply(
+            torch.cat([m.sum()[None], xm.sum(dim=0), (xm * xf).sum(dim=0)]), self.group)
+        n = torch.clamp(stats[0], min=1.0)
+        mean = stats[1 : 1 + C] / n
+        return n, mean, torch.clamp(stats[1 + C :] / n - mean * mean, min=0.0)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
         C = x.shape[-1]
         if self.training:
             xf = x.reshape(-1, C)
-            if mask is None:
+            if self.group is not None:
+                n, mean, var = self._group_stats(xf, mask)
+            elif mask is None:
                 n = torch.tensor(float(xf.shape[0]), device=x.device)
                 mean = xf.mean(dim=0)
                 var = ((xf - mean) ** 2).mean(dim=0)

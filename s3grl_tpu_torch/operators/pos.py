@@ -36,17 +36,21 @@ the scan route, the ``vmem_ok`` gate (every bucket goes through the kernel
 here), the staircase slot permutation (it changes only the TPU kernel's
 densify cost) and padding batches to a fixed size. Left out too: the
 JAX package's opt-in local-table route (``S3GRL_TPU_LOCAL_TAB``; on the
-card building the tables on the host cost more than the kernel saved), its
-pipelined whole-split pass (one pass bucketed once was faster on the card)
-and its CCN percentile pad (``S3GRL_TPU_CCN_PAD_PCT``, which drops CCN
-rows; the width here is the exact maximum). The mesh-sharded hooks
-(``extract_fn``, ``out_shardings``, ``batch_multiple``, ``size_oracle``)
-wait for the multi-device slice.
+card building the tables on the host cost more than the kernel saved) and
+its pipelined whole-split pass (one pass bucketed once was faster on the
+card). The JAX package's CCN percentile pad (``S3GRL_TPU_CCN_PAD_PCT``)
+is the constant :data:`CCN_PAD_PCT`, 100 (the exact maximum): no workload
+sets it lower. The sharded path's hooks
+are :func:`pos_plan`'s ``size_oracle`` and ``batch_multiple`` and the
+per-batch body :func:`_extract_and_operate`; the JAX ``extract_fn`` and
+``out_shardings`` have no counterpart, since each rank runs its share of a
+batch in a process of its own (``parallel/dist.py``).
 """
 from __future__ import annotations
 
 import os
 import warnings
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -279,6 +283,13 @@ def batch_cap(bucket: int, F: int, D_tab: int, eff_ccn: int, batch_size: int) ->
     return 1 << (cap.bit_length() - 1)
 
 
+# PoS+'s CCN width as a percentile of the links' CCN counts (JAX
+# ``S3GRL_TPU_CCN_PAD_PCT``): 100 keeps the exact maximum, the reference's
+# semantics; below 100 one hub pair no longer sizes every link's rows, but
+# the links past the percentile lose rows, so it changes answers.
+CCN_PAD_PCT = 100
+
+
 def measure_ccn_width(
     dg: DeviceGraph, links: np.ndarray, strategy: str, cap: int
 ) -> int:
@@ -286,8 +297,10 @@ def measure_ccn_width(
     graph (a subgraph CCN set is a subset of the global 1-hop sets).
 
     The reference keeps exactly |CCN| rows per link (tuned_SIGN.py:238); the
-    fixed-shape analog sizes R to the measured max, capped at ``cap``. A
-    width below the measured max warns "CCN width capped".
+    fixed-shape analog sizes R to the measured max, capped at ``cap``, or,
+    with :data:`CCN_PAD_PCT` below 100, to that percentile of the counts
+    (JAX pos.py:543-573). A width below the measured max warns "CCN width
+    capped", in the JAX package's words.
     """
     import scipy.sparse as ssp
 
@@ -306,11 +319,16 @@ def measure_ccn_width(
         has_edge = np.asarray(A[s, d]).ravel()
         counts = deg[s] + deg[d] - cn - 2 * has_edge
     measured = int(counts.max()) if len(counts) else 0
-    width = max(1, min(cap, measured))
+    pct = float(CCN_PAD_PCT)
+    if len(counts) and pct < 100:
+        width = int(np.ceil(np.percentile(counts, pct)))
+    else:
+        width = measured
+    width = max(1, min(cap, width))
     if width < measured:
         n_trunc = int((counts > width).sum())
         warnings.warn(
-            f"CCN width capped at {width} (cap {cap}) < measured max "
+            f"CCN width capped at {width} (cap {cap}, pad pct {pct}) < measured max "
             f"{measured}: {n_trunc}/{len(counts)} links lose their "
             f"furthest-slot CCN rows relative to the reference's exact "
             f"selection (tuned_SIGN.py:238). Raise max_ccn_nodes to keep them.",
@@ -403,6 +421,226 @@ def host_extract_route(dg: DeviceGraph, num_links: int, *, scaled: bool,
     )
 
 
+def _extract_and_operate(
+    dg: DeviceGraph,
+    links: torch.Tensor,  # [B, 2]
+    link_seeds: torch.Tensor,  # [B]
+    *,
+    num_hops: int,
+    max_nodes: int,
+    ratio_per_hop: float,
+    max_nodes_per_hop: Optional[int],
+    sign_k: int,
+    max_ccn: int,
+    strategy: str,
+    rw_m: int = 0,
+    rw_M: int = 0,
+    host_nodes: Optional[np.ndarray] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One link batch (JAX ``_extract_and_operate``): its node sets, by
+    ScaLed's walks (``rw_m``/``rw_M``), the host BFS's table ``host_nodes``
+    [B, S] (-1 on empty slots) or the device BFS, then their PoS(+)
+    operators through ``pos_power_rows``. Returns (xs [B, K+1, R, F+1],
+    row_mask [B, R])."""
+    dev = links.device
+    if rw_m and rw_M:
+        sub = extract_rw_subgraphs(dg, links, link_seeds, rw_m=rw_m, rw_M=rw_M,
+                                   max_nodes=max_nodes)
+        return pos_operators(sub, dg.x, sign_k=sign_k, max_ccn=max_ccn, strategy=strategy,
+                             use_kernel=True)
+    if host_nodes is not None:
+        nodes = torch.as_tensor(np.where(host_nodes >= 0, host_nodes, 0), device=dev)
+        node_mask = torch.as_tensor(host_nodes >= 0, device=dev)
+    else:
+        nodes, node_mask, _, _ = extract_node_sets(
+            dg, links, num_hops=num_hops, max_nodes=max_nodes, ratio_per_hop=ratio_per_hop,
+            max_nodes_per_hop=max_nodes_per_hop, link_seeds=link_seeds,
+        )
+    return pos_operators_global(dg, links, nodes, node_mask, sign_k=sign_k, max_ccn=max_ccn,
+                                strategy=strategy)
+
+
+@dataclass
+class PosPlan:
+    """What :func:`precompute_pos` decides before its first batch: the CCN
+    width, the dataset's storage tier, the batches (bucket, link indices
+    into the split) and the node-set route. The same inputs give the same
+    plan in every process, so the ranks of ``parallel/dist.py`` share it."""
+
+    eff_ccn: int
+    store_dtype: torch.dtype
+    store_dev: torch.device
+    batches: list  # [(bucket, int64 link indices)], in run order
+    link_seeds: np.ndarray  # [L] int32
+    host: bool  # node sets from the native host BFS
+    nodes_all: Optional[np.ndarray]  # the whole split's host BFS table, or None
+    extract_kw: dict  # the keywords of _extract_and_operate but max_nodes
+
+    def operate(self, dg: DeviceGraph, links: np.ndarray, bucket: int, idx: np.ndarray):
+        """(xs, row_mask) of the links ``links[idx]`` in ``bucket``."""
+        dev = dg.device
+        host_nodes = None
+        if self.host:
+            if self.nodes_all is not None:
+                host_nodes = self.nodes_all[idx, :bucket]
+            else:
+                host_nodes, _ = native.khop_nodes(*dg.host_csr(), links[idx],
+                                                  self.extract_kw["num_hops"], int(bucket))
+        return _extract_and_operate(
+            dg, torch.as_tensor(links[idx], device=dev),
+            torch.as_tensor(self.link_seeds[idx], device=dev),
+            max_nodes=int(bucket), host_nodes=host_nodes, **self.extract_kw,
+        )
+
+
+def _storage_tier(L: int, sign_k: int, F: int, eff_ccn: int, dev: torch.device):
+    """(CCN width, dtype, device) of the dataset (JAX pos.py:818-849): f32
+    on the device, else bf16 on the device (storage only; compute stays
+    f32), with the CCN pad halved down the power-of-two ladder first if even
+    bf16 does not fit; f32 on the host at the full width if the halved bf16
+    tier exceeds 2x budget."""
+    def _est(r_ccn: int, bytes_per: int) -> int:
+        return L * (sign_k + 1) * (2 + r_ccn) * (F + 1) * bytes_per
+
+    eff_dev = eff_ccn
+    while eff_dev > 2 and _est(eff_dev, 2) > DEVICE_DS_BYTES:
+        eff_dev //= 2
+    if _est(eff_dev, 2) > 2 * DEVICE_DS_BYTES:
+        return eff_ccn, torch.float32, torch.device("cpu")
+    if eff_dev < eff_ccn:
+        warnings.warn(
+            f"PoS+ CCN pad halved {eff_ccn} -> {eff_dev} to fit the device "
+            f"dataset budget ({_est(eff_ccn, 2) / 1e9:.1f} GB bf16 at "
+            f"R={2 + eff_ccn} > {DEVICE_DS_BYTES / 1e9:.1f} GB for L={L}, "
+            f"F={F}); densest links lose their furthest CCN rows.",
+            stacklevel=3,
+        )
+    dtype = torch.float32 if _est(eff_dev, 4) <= DEVICE_DS_BYTES else torch.bfloat16
+    return eff_dev, dtype, dev
+
+
+def subgraph_sizes(
+    dg: DeviceGraph,
+    links: np.ndarray,
+    *,
+    num_hops: int,
+    ratio_per_hop: float = 1.0,
+    max_nodes_per_hop: Optional[int] = None,
+    batch_size: int = 256,
+    max_subgraph_nodes: int = 1024,
+    seed: int = 0,
+    buckets=(32, 64, 128, 256, 512, 1024),
+    rw_m: int = 0,
+    rw_M: int = 0,
+) -> np.ndarray:
+    """The sizes :func:`precompute_pos` buckets ``links`` by, with the same
+    keywords: ScaLed's one bucket, the host BFS's sizes on the host route,
+    else the device BFS's (:func:`measure_subgraph_sizes`). The value of
+    ``size_oracle`` that changes nothing."""
+    sizes, _ = _sizes_and_table(
+        dg, np.asarray(links, dtype=np.int32), num_hops=num_hops,
+        ratio_per_hop=ratio_per_hop, max_nodes_per_hop=max_nodes_per_hop,
+        batch_size=batch_size, max_subgraph_nodes=max_subgraph_nodes, seed=seed,
+        buckets=_size_buckets(buckets, max_subgraph_nodes), rw_m=rw_m, rw_M=rw_M,
+        table=False,
+    )
+    return sizes
+
+
+def _sizes_and_table(dg, links, *, num_hops, ratio_per_hop, max_nodes_per_hop, batch_size,
+                     max_subgraph_nodes, seed, buckets, rw_m, rw_M, table: bool):
+    """(sizes [L], the host BFS's whole-split node table or None)."""
+    L = links.shape[0]
+    host = host_extract_route(dg, L, scaled=bool(rw_m and rw_M), ratio_per_hop=ratio_per_hop,
+                              max_nodes_per_hop=max_nodes_per_hop)
+    if rw_m and rw_M:
+        bucket, _, _ = scaled_batch_plan(dg, L, rw_m=rw_m, rw_M=rw_M, seed=seed, eff_ccn=0,
+                                         buckets=buckets, max_subgraph_nodes=max_subgraph_nodes,
+                                         batch_size=batch_size)
+        return np.full(L, bucket, dtype=np.int32), None
+    if host and table and L * max_subgraph_nodes <= KHOP_TABLE_ENTRIES:
+        # One host BFS pass over the whole split: its node prefix does not
+        # depend on the cap, so slicing its table to a bucket's width equals
+        # a call at that width. Its sizes are exact below the cap and at
+        # least the cap where the BFS stopped early, so clamped they are the
+        # bucketing oracle.
+        nodes_all, sizes = native.khop_nodes(*dg.host_csr(), links, num_hops,
+                                             max_subgraph_nodes)
+        return np.minimum(sizes, max_subgraph_nodes), nodes_all
+    if host:
+        return native.bfs_sizes(*dg.host_csr(), links, num_hops), None
+    return measure_subgraph_sizes(
+        dg, links, link_seeds_of(seed, L), num_hops=num_hops, ratio_per_hop=ratio_per_hop,
+        max_nodes_per_hop=max_nodes_per_hop, batch_size=max(batch_size, 512),
+    ), None
+
+
+def pos_plan(
+    dg: DeviceGraph,
+    links: np.ndarray,  # [L, 2] int32
+    *,
+    num_hops: int,
+    sign_k: int,
+    k_heuristic: int = 0,
+    k_node_set_strategy: str = "",
+    max_ccn: int = 0,
+    ratio_per_hop: float = 1.0,
+    max_nodes_per_hop: Optional[int] = None,
+    buckets=(32, 64, 128, 256, 512, 1024),
+    batch_size: int = 256,
+    max_subgraph_nodes: int = 1024,
+    seed: int = 0,
+    rw_m: int = 0,
+    rw_M: int = 0,
+    size_oracle: Optional[np.ndarray] = None,
+    batch_multiple: int = 1,
+) -> PosPlan:
+    """:func:`precompute_pos`'s plan. ``size_oracle`` [L] gives the sizes
+    to bucket by, and no sizing pass runs (the host route then runs the BFS
+    batch by batch). With ``batch_multiple`` > 1 each bucket's batch cap is
+    rounded up to a multiple of it (JAX pos.py:897-903), so that a mesh's
+    ranks split every full batch evenly."""
+    L = links.shape[0]
+    eff_ccn = (
+        padded_ccn_width(dg, links, k_node_set_strategy, max_ccn) if k_heuristic > 0 else 0
+    )
+    D_tab = int(dg.nbr.shape[1])
+    F = int(dg.x.shape[1])
+    eff_ccn, store_dtype, store_dev = _storage_tier(L, sign_k, F, eff_ccn, dg.device)
+
+    buckets = _size_buckets(buckets, max_subgraph_nodes)
+    host = host_extract_route(dg, L, scaled=bool(rw_m and rw_M), ratio_per_hop=ratio_per_hop,
+                              max_nodes_per_hop=max_nodes_per_hop)
+    nodes_all = None
+    if size_oracle is not None:
+        sizes = np.asarray(size_oracle)
+        if sizes.shape != (L,):
+            raise ValueError(f"size_oracle has shape {sizes.shape}, expected ({L},)")
+    else:
+        sizes, nodes_all = _sizes_and_table(
+            dg, links, num_hops=num_hops, ratio_per_hop=ratio_per_hop,
+            max_nodes_per_hop=max_nodes_per_hop, batch_size=batch_size,
+            max_subgraph_nodes=max_subgraph_nodes, seed=seed, buckets=buckets,
+            rw_m=rw_m, rw_M=rw_M, table=True,
+        )
+    order = np.argsort(sizes, kind="stable")
+    bucket_of = np.array([pick_bucket(int(s), buckets) for s in sizes[order]])
+    batches = []
+    for bucket in np.unique(bucket_of):
+        idx_all = order[bucket_of == bucket]
+        cap = batch_cap(int(bucket), F, D_tab, eff_ccn, batch_size)
+        cap = -(-cap // batch_multiple) * batch_multiple
+        batches += [(int(bucket), idx_all[start : start + cap])
+                    for start in range(0, len(idx_all), cap)]
+    return PosPlan(
+        eff_ccn=eff_ccn, store_dtype=store_dtype, store_dev=store_dev, batches=batches,
+        link_seeds=link_seeds_of(seed, L), host=host, nodes_all=nodes_all,
+        extract_kw=dict(num_hops=num_hops, ratio_per_hop=ratio_per_hop,
+                        max_nodes_per_hop=max_nodes_per_hop, sign_k=sign_k, max_ccn=eff_ccn,
+                        strategy=k_node_set_strategy, rw_m=rw_m, rw_M=rw_M),
+    )
+
+
 def precompute_pos(
     dg: DeviceGraph,
     links: np.ndarray,  # [L, 2]
@@ -421,6 +659,8 @@ def precompute_pos(
     seed: int = 0,
     rw_m: int = 0,
     rw_M: int = 0,
+    size_oracle: Optional[np.ndarray] = None,
+    batch_multiple: int = 1,
     device="cuda",
 ) -> OperatorDataset:
     """Host driver: bucket links by subgraph size, run each batch on the
@@ -431,6 +671,9 @@ def precompute_pos(
     Per-hop sampling draws from link i's seed ``seed * 1_000_003 + i``; on
     large graphs the node sets come from the native host BFS
     (:func:`host_extract_route`; the module docstring has the route).
+    ``size_oracle`` and ``batch_multiple`` are :func:`pos_plan`'s;
+    ``parallel/dist.precompute_pos_sharded`` runs the same plan, each rank
+    its share of every batch.
     """
     from s3grl_tpu_torch.utils.device import resolve_device
 
@@ -443,114 +686,22 @@ def precompute_pos(
         raise ValueError("PoS requires node features (reference parity)")
     L = links.shape[0]
     links = np.asarray(links, dtype=np.int32)
-    eff_ccn = (
-        padded_ccn_width(dg, links, k_node_set_strategy, max_ccn) if k_heuristic > 0 else 0
+    plan = pos_plan(
+        dg, links, num_hops=num_hops, sign_k=sign_k, k_heuristic=k_heuristic,
+        k_node_set_strategy=k_node_set_strategy, max_ccn=max_ccn,
+        ratio_per_hop=ratio_per_hop, max_nodes_per_hop=max_nodes_per_hop, buckets=buckets,
+        batch_size=batch_size, max_subgraph_nodes=max_subgraph_nodes, seed=seed,
+        rw_m=rw_m, rw_M=rw_M, size_oracle=size_oracle, batch_multiple=batch_multiple,
     )
-
-    D_tab = int(dg.nbr.shape[1])
     F = int(dg.x.shape[1])
-
-    # Storage tiers (JAX pos.py:818-849): f32 on the device, else bf16 on
-    # the device (storage only; compute stays f32), with the CCN pad halved
-    # down the power-of-two ladder first if even bf16 does not fit; f32 on
-    # the host at the full width if the halved bf16 tier exceeds 2x budget.
-    def _est(r_ccn: int, bytes_per: int) -> int:
-        return L * (sign_k + 1) * (2 + r_ccn) * (F + 1) * bytes_per
-
-    eff_dev = eff_ccn
-    while eff_dev > 2 and _est(eff_dev, 2) > DEVICE_DS_BYTES:
-        eff_dev //= 2
-    host_assemble = _est(eff_dev, 2) > 2 * DEVICE_DS_BYTES
-    if host_assemble:
-        eff_dev = eff_ccn
-    elif eff_dev < eff_ccn:
-        warnings.warn(
-            f"PoS+ CCN pad halved {eff_ccn} -> {eff_dev} to fit the device "
-            f"dataset budget ({_est(eff_ccn, 2) / 1e9:.1f} GB bf16 at "
-            f"R={2 + eff_ccn} > {DEVICE_DS_BYTES / 1e9:.1f} GB for L={L}, "
-            f"F={F}); densest links lose their furthest CCN rows.",
-            stacklevel=2,
-        )
-    eff_ccn = eff_dev
-    R_rows = 2 + eff_ccn
-    store_dtype = (
-        torch.float32 if _est(eff_ccn, 4) <= DEVICE_DS_BYTES else torch.bfloat16
-    )
-    store_dev = torch.device("cpu") if host_assemble else dev
-    if host_assemble:
-        store_dtype = torch.float32
-    xs_all = torch.zeros(
-        (L, sign_k + 1, R_rows, F + 1), dtype=store_dtype, device=store_dev
-    )
-    mask_all = torch.zeros((L, R_rows), dtype=torch.bool, device=store_dev)
-
-    buckets = _size_buckets(buckets, max_subgraph_nodes)
-    scaled = bool(rw_m and rw_M)
-    host = host_extract_route(dg, L, scaled=scaled, ratio_per_hop=ratio_per_hop,
-                              max_nodes_per_hop=max_nodes_per_hop)
-    nodes_all = None
-    if scaled:
-        bucket, _, link_seeds = scaled_batch_plan(
-            dg, L, rw_m=rw_m, rw_M=rw_M, seed=seed, eff_ccn=eff_ccn, buckets=buckets,
-            max_subgraph_nodes=max_subgraph_nodes, batch_size=batch_size,
-        )
-        sizes = np.full(L, bucket, dtype=np.int32)
-    elif host and L * max_subgraph_nodes <= KHOP_TABLE_ENTRIES:
-        # One host BFS pass over the whole split: its node prefix does not
-        # depend on the cap, so slicing its table to a bucket's width equals
-        # a call at that width. Its sizes are exact below the cap and at
-        # least the cap where the BFS stopped early, so clamped they are the
-        # bucketing oracle.
-        nodes_all, sizes = native.khop_nodes(*dg.host_csr(), links, num_hops,
-                                             max_subgraph_nodes)
-        sizes = np.minimum(sizes, max_subgraph_nodes)
-    elif host:
-        sizes = native.bfs_sizes(*dg.host_csr(), links, num_hops)
-    else:
-        link_seeds = link_seeds_of(seed, L)
-        sizes = measure_subgraph_sizes(
-            dg, links, link_seeds, num_hops=num_hops, ratio_per_hop=ratio_per_hop,
-            max_nodes_per_hop=max_nodes_per_hop, batch_size=max(batch_size, 512),
-        )
-    order = np.argsort(sizes, kind="stable")
-    bucket_of = np.array([pick_bucket(int(s), buckets) for s in sizes[order]])
-    for bucket in np.unique(bucket_of):
-        idx_all = order[bucket_of == bucket]
-        bsz_cap = batch_cap(int(bucket), F, D_tab, eff_ccn, batch_size)
-        for start in range(0, len(idx_all), bsz_cap):
-            idx = idx_all[start : start + bsz_cap]
-            lb = torch.as_tensor(links[idx], device=dev)
-            if scaled:
-                sub = extract_rw_subgraphs(
-                    dg, lb, torch.as_tensor(link_seeds[idx], device=dev),
-                    rw_m=rw_m, rw_M=rw_M, max_nodes=int(bucket),
-                )
-                xs, row_mask = pos_operators(
-                    sub, dg.x, sign_k=sign_k, max_ccn=eff_ccn,
-                    strategy=k_node_set_strategy, use_kernel=True,
-                )
-            else:
-                if host:
-                    if nodes_all is not None:
-                        nd = nodes_all[idx, :bucket]
-                    else:
-                        nd, _ = native.khop_nodes(*dg.host_csr(), links[idx], num_hops,
-                                                  int(bucket))
-                    nodes = torch.as_tensor(np.where(nd >= 0, nd, 0), device=dev)
-                    node_mask = torch.as_tensor(nd >= 0, device=dev)
-                else:
-                    nodes, node_mask, _, _ = extract_node_sets(
-                        dg, lb, num_hops=num_hops, max_nodes=int(bucket),
-                        ratio_per_hop=ratio_per_hop, max_nodes_per_hop=max_nodes_per_hop,
-                        link_seeds=torch.as_tensor(link_seeds[idx], device=dev),
-                    )
-                xs, row_mask = pos_operators_global(
-                    dg, lb, nodes, node_mask,
-                    sign_k=sign_k, max_ccn=eff_ccn, strategy=k_node_set_strategy,
-                )
-            idx_t = torch.as_tensor(idx, device=store_dev)
-            xs_all[idx_t] = xs.to(device=store_dev, dtype=store_dtype)
-            mask_all[idx_t] = row_mask.to(store_dev)
+    xs_all = torch.zeros((L, sign_k + 1, 2 + plan.eff_ccn, F + 1), dtype=plan.store_dtype,
+                         device=plan.store_dev)
+    mask_all = torch.zeros((L, 2 + plan.eff_ccn), dtype=torch.bool, device=plan.store_dev)
+    for bucket, idx in plan.batches:
+        xs, row_mask = plan.operate(dg, links, bucket, idx)
+        idx_t = torch.as_tensor(idx, device=plan.store_dev)
+        xs_all[idx_t] = xs.to(device=plan.store_dev, dtype=plan.store_dtype)
+        mask_all[idx_t] = row_mask.to(plan.store_dev)
 
     return OperatorDataset(
         xs=xs_all, row_mask=mask_all, y=np.asarray(y, dtype=np.float32)

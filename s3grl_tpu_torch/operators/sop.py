@@ -104,6 +104,32 @@ def sop_batch_size(num_nodes: int, num_edges: int) -> int:
                        48_000_000 // max(num_edges, 1)))
 
 
+def host_normalized_edges(dg: DeviceGraph):
+    """(src, dst, weight) of Â's edges on the host: the sym-normalized
+    weights of the binary adjacency (E-sized, cheap; ``blockify`` reads
+    them there)."""
+    src_h, dst_h, _ = dg.host_edges()
+    norm_w_h = normalized_adjacency_weights(
+        torch.as_tensor(src_h, dtype=torch.int64),
+        torch.as_tensor(dst_h, dtype=torch.int64), dg.num_nodes,
+    ).numpy()
+    return src_h, dst_h, norm_w_h
+
+
+def sop_route(dg: DeviceGraph, src_h, dst_h, norm_w_h):
+    """(propagate, chain) of Â on the route :func:`should_use_bsr` picks
+    from the graph's shape: ``propagate(Y)`` = Â Y and ``chain(X, K)`` =
+    [Â X, ..., Â^K X], by ``bsr_spmm`` over the CSR form, or by the edge
+    list. Both add each row's terms in a fixed order, so the results repeat
+    bit for bit on the card."""
+    N = dg.num_nodes
+    if should_use_bsr(src_h, dst_h, N, int(dg.x.shape[1])):
+        adj = blockify(src_h, dst_h, norm_w_h, N, device=dg.device)
+        return (lambda y: bsr_spmm(adj, y)), (lambda x, k: power_chain(adj, x, k))
+    edges = edge_list(dg.edge_src, dg.edge_dst, torch.as_tensor(norm_w_h, device=dg.device), N)
+    return (lambda y: spmm(edges, y)), (lambda x, k: _sop_power_features(edges, x, sign_k=k))
+
+
 def precompute_sop(
     dg: DeviceGraph,
     links: np.ndarray,  # [L, 2]
@@ -138,27 +164,8 @@ def precompute_sop(
     L = links.shape[0]
     links = np.asarray(links, dtype=np.int64)
 
-    # Normalized weights on the host (E-sized, cheap): blockify reads them
-    # there, and the card gets one copy.
-    src_h, dst_h, _ = dg.host_edges()
-    norm_w_h = normalized_adjacency_weights(
-        torch.as_tensor(src_h, dtype=torch.int64),
-        torch.as_tensor(dst_h, dtype=torch.int64), N,
-    ).numpy()
-    norm_w = torch.as_tensor(norm_w_h, device=dev)
-
-    if should_use_bsr(src_h, dst_h, N, F):
-        adj = blockify(src_h, dst_h, norm_w_h, N, device=dev)
-        ys = power_chain(adj, x_global, sign_k)
-
-        def propagate(y):
-            return bsr_spmm(adj, y)
-    else:
-        edges = edge_list(dg.edge_src, dg.edge_dst, norm_w, N)
-        ys = _sop_power_features(edges, x_global, sign_k=sign_k)
-
-        def propagate(y):
-            return spmm(edges, y)
+    propagate, chain = sop_route(dg, *host_normalized_edges(dg))
+    ys = chain(x_global, sign_k)
 
     if batch_size <= 0:
         batch_size = sop_batch_size(N, int(dg.edge_src.shape[0]))

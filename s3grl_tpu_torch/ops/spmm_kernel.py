@@ -5,12 +5,18 @@ torch versions.
 (through its wrappers ``bsr_spmm`` and ``power_chain``): ``Y = M @ X`` for
 M built once per graph on the host by :func:`blockify`, ``M[dst, src] = w``.
 ``blockify`` keeps the JAX package's 128×128 block-sparse (BSR) layout and
-also reads the CSR form of the same M out of those blocks; the kernel walks
-the CSR nonzeros. The route selector :func:`should_use_bsr` picks between
+also builds the CSR form of the same M, with the same sums; the kernel
+walks the CSR nonzeros. The route selector :func:`should_use_bsr` picks between
 this and the edge-list route (``ops/spmm.spmm``) from the graph's shape.
+M may be a rectangle: a row shard of the row-partitioned chain
+(``parallel/dist.py``) is :func:`csr_matrix` of the shard's incoming edges,
+``[rows, N_pad]`` in CSR form alone (no dense blocks, so no block budget),
+multiplied by the gathered ``[N_pad, C]`` power.
 
-On CPU tensors the wrapper runs ``bsr_spmm_reference`` (the dense blocks);
-on CUDA tensors it launches the kernel (``csrc/bsr_spmm.cu``) or raises.
+On CPU tensors the wrapper runs ``bsr_spmm_reference`` (the dense blocks)
+for a :class:`BlockedAdjacency` and ``csr_spmm_reference`` for a
+:class:`CsrMatrix`; on CUDA tensors it launches the kernel
+(``csrc/bsr_spmm.cu``) or raises.
 """
 from __future__ import annotations
 
@@ -58,6 +64,72 @@ class BlockedAdjacency:
     def num_blocks(self) -> int:
         return int(self.blocks.shape[0])
 
+    @property
+    def num_cols(self) -> int:
+        """Columns of M (the rows of the X it multiplies): M is square."""
+        return self.num_nodes
+
+
+@dataclass(frozen=True)
+class CsrMatrix:
+    """A sparse matrix M in CSR form alone, on one device: the CSR fields of
+    :class:`BlockedAdjacency` (same names, same meaning), without the dense
+    blocks. ``num_nodes`` rows and ``num_cols`` columns: a row shard of the
+    row-partitioned chain has fewer rows than columns."""
+
+    csr_row_ptr: torch.Tensor  # [num_nodes + 1] int32
+    csr_cols: torch.Tensor  # [nnz] int32
+    csr_vals: torch.Tensor  # [nnz] float32
+    csr_max_row: int
+    num_nodes: int
+    num_cols: int
+
+
+def _csr_arrays(edge_src, edge_dst, edge_weight, num_rows: int, num_cols: int):
+    """(row_ptr, cols, vals, max_row) of M, ``M[dst, src] = w``: each
+    distinct (dst, src) pair once, sorted, its edges' weights added in
+    their given order (as ``np.add.at`` adds them into a dense block);
+    entries that sum to zero and those outside ``[num_rows, num_cols)``
+    drop out."""
+    edge_src = np.asarray(edge_src, dtype=np.int64)
+    edge_dst = np.asarray(edge_dst, dtype=np.int64)
+    width = int(edge_src.max()) + 1 if len(edge_src) else 1
+    pair, slot = np.unique(edge_dst * width + edge_src, return_inverse=True)
+    vals = np.zeros(len(pair), dtype=np.float32)
+    np.add.at(vals, slot.reshape(-1), np.asarray(edge_weight, dtype=np.float32))
+    rows, cols = pair // width, pair % width
+    keep = (vals != 0) & (rows < num_rows) & (cols < num_cols)
+    rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    row_nnz = np.bincount(rows, minlength=num_rows)
+    row_ptr = np.concatenate([[0], np.cumsum(row_nnz)]).astype(np.int32)
+    return row_ptr, cols.astype(np.int32), vals, int(row_nnz.max(initial=0))
+
+
+def csr_matrix(
+    edge_src: np.ndarray,
+    edge_dst: np.ndarray,
+    edge_weight: np.ndarray,
+    num_rows: int,
+    num_cols: int,
+    *,
+    device="cuda",
+) -> CsrMatrix:
+    """M, ``M[dst, src] = w``, ``[num_rows, num_cols]``, as a
+    :class:`CsrMatrix` on ``device``: the CSR fields :func:`blockify` would
+    give the same edges, built on the host without the dense blocks (so at
+    any size the host holds)."""
+    from s3grl_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    row_ptr, cols, vals, max_row = _csr_arrays(edge_src, edge_dst, edge_weight, num_rows,
+                                               num_cols)
+    return CsrMatrix(
+        csr_row_ptr=torch.as_tensor(row_ptr, device=dev),
+        csr_cols=torch.as_tensor(cols, device=dev),
+        csr_vals=torch.as_tensor(vals, device=dev),
+        csr_max_row=max_row, num_nodes=num_rows, num_cols=num_cols,
+    )
+
 
 def _block_keys(edge_src, edge_dst, n_rb: int, bs: int) -> np.ndarray:
     """Each edge's block key ``row_block * 4 n_rb + col_block`` (int64).
@@ -91,8 +163,9 @@ def blockify(
     and move them to ``device``. Raises ValueError when the dense blocks
     would exceed ``budget_bytes``.
 
-    The CSR form takes its values from the finished blocks, so both forms
-    hold the same values: duplicate edges are summed, entries that sum to
+    The CSR form adds a pair's edges in the order ``np.add.at`` adds them
+    into its block entry, so both forms hold the same values (those of
+    :func:`csr_matrix`): duplicate edges are summed, entries that sum to
     zero and the explicit zero blocks drop out, and so do entries in rows
     or columns >= ``num_nodes`` (they meet no row of X or Y).
 
@@ -143,16 +216,11 @@ def blockify(
         [[0], np.cumsum(np.bincount(all_rows, minlength=n_rb))]
     ).astype(np.int32)
 
-    # The CSR form: each distinct (dst, src) pair once, sorted, its value
-    # read back from the block entry the pair's edges were summed into.
-    width = int(edge_src.max()) + 1 if len(edge_src) else 1
-    pair, first = np.unique(edge_dst[order] * width + edge_src[order], return_index=True)
-    rows, cols = pair // width, pair % width
-    vals = blocks[edge_slot[first], r_loc[first], c_loc[first]]
-    keep = (vals != 0) & (rows < num_nodes) & (cols < num_nodes)
-    rows, cols, vals = rows[keep], cols[keep], vals[keep]
-    row_nnz = np.bincount(rows, minlength=num_nodes)
-    csr_row_ptr = np.concatenate([[0], np.cumsum(row_nnz)]).astype(np.int32)
+    # The CSR form: a pair's edges are added in their given order, as
+    # np.add.at added them into its block entry, so both forms hold the
+    # same values.
+    csr_row_ptr, cols, vals, max_row = _csr_arrays(edge_src, edge_dst, edge_weight,
+                                                   num_nodes, num_nodes)
     return BlockedAdjacency(
         blocks=torch.as_tensor(blocks, device=dev),
         block_rows=torch.as_tensor(all_rows, device=dev),
@@ -161,9 +229,9 @@ def blockify(
         num_nodes=num_nodes,
         num_row_blocks=n_rb,
         csr_row_ptr=torch.as_tensor(csr_row_ptr, device=dev),
-        csr_cols=torch.as_tensor(cols.astype(np.int32), device=dev),
+        csr_cols=torch.as_tensor(cols, device=dev),
         csr_vals=torch.as_tensor(vals, device=dev),
-        csr_max_row=int(row_nnz.max(initial=0)),
+        csr_max_row=max_row,
     )
 
 
@@ -216,11 +284,11 @@ def bsr_spmm_reference(adj: BlockedAdjacency, x: torch.Tensor) -> torch.Tensor:
     return out.view(-1, c)[:n]
 
 
-def csr_spmm_reference(adj: BlockedAdjacency, x: torch.Tensor) -> torch.Tensor:
+def csr_spmm_reference(adj: BlockedAdjacency | CsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """Plain torch version of the kernel's own walk: each CSR nonzero times
     its row of X, added into its output row with ``index_add_``.
-    Returns [N, C] float32."""
-    n, c = x.shape
+    Returns [rows of M, C] float32."""
+    n, c = adj.num_nodes, x.shape[1]
     counts = adj.csr_row_ptr[1:] - adj.csr_row_ptr[:-1]
     rows = torch.repeat_interleave(torch.arange(n, device=x.device), counts.long())
     prod = adj.csr_vals[:, None] * x[adj.csr_cols.long()]
@@ -240,28 +308,33 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def bsr_spmm(adj: BlockedAdjacency, x: torch.Tensor) -> torch.Tensor:
-    """Y = M @ X for ``x`` [N, C] float32. Returns [N, C] float32.
+def bsr_spmm(adj: BlockedAdjacency | CsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Y = M @ X for ``x`` [num_cols, C] float32. Returns [num_nodes, C]
+    float32 (one row per row of M; [N, C] for a graph's adjacency).
 
-    CPU tensors go to ``bsr_spmm_reference``. CUDA tensors launch the
+    CPU tensors go to ``bsr_spmm_reference`` (a :class:`CsrMatrix`, which
+    has no blocks, to ``csr_spmm_reference``). CUDA tensors launch the
     kernel on the current stream, which reads the CSR fields of ``adj``;
     anything it does not take raises.
     ``bsr_spmm.launches`` counts the launches.
     """
     dev = x.device
     if dev.type == "cpu":
+        if isinstance(adj, CsrMatrix):
+            return csr_spmm_reference(adj, x)
         return bsr_spmm_reference(adj, x)
     if dev.type != "cuda":
         raise ValueError(f"bsr_spmm runs on cpu or cuda, got {dev}")
-    n, c = x.shape
+    n_x, c = x.shape
+    n = adj.num_nodes
     nnz = int(adj.csr_cols.shape[0])
-    if n != adj.num_nodes:
-        raise ValueError(f"x has {n} rows, the adjacency {adj.num_nodes} nodes")
-    _build.check_arg(x, "x", torch.float32, (n, c), dev)
+    if n_x != adj.num_cols:
+        raise ValueError(f"x has {n_x} rows, the adjacency {adj.num_cols} columns")
+    _build.check_arg(x, "x", torch.float32, (n_x, c), dev)
     _build.check_arg(adj.csr_row_ptr, "csr_row_ptr", torch.int32, (n + 1,), dev)
     _build.check_arg(adj.csr_cols, "csr_cols", torch.int32, (nnz,), dev)
     _build.check_arg(adj.csr_vals, "csr_vals", torch.float32, (nnz,), dev)
-    if max(n * c, nnz) >= 2**31:
+    if max(n * c, n_x * c, nnz) >= 2**31:
         raise ValueError("shape too large for the kernel's int32 indexing")
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
     if n == 0 or c == 0:

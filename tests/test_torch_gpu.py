@@ -548,3 +548,95 @@ def test_host_and_device_routes_give_the_same_dataset_on_the_card(monkeypatch):
     got = precompute_pos(dg, links, y, **kw)
     assert torch.equal(got.row_mask, want.row_mask)
     assert torch.equal(got.xs, want.xs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1025, 4, 1])
+def test_bsr_kernel_on_a_row_shard_matches_plain_version(c):
+    """``bsr_spmm`` on one rank's [rows, N_pad] shard of a 2-way row
+    partition (``parallel/dist.py``), built as the chain builds it
+    (``csr_matrix``, CSR alone): X has N_pad rows, Y one per shard row;
+    against its plain version, the dense product, and the square matrix's
+    rows bit for bit."""
+    from s3grl_tpu_torch.ops.spmm_kernel import csr_matrix
+    from s3grl_tpu_torch.parallel.dist import partition_edges_by_owner
+
+    dev = _cuda()
+    n = 333  # rows = 167, N_pad = 334: X's last row is padding
+    src, dst, w, _ = _bsr_inputs(7, n, 4000, 1)
+    src_p, dstl_p, w_p, rows = partition_edges_by_owner(src, dst, w, n, 2)
+    rng = np.random.default_rng(8)
+    x = np.zeros((2 * rows, c), np.float32)
+    x[:n] = rng.normal(size=(n, c))
+    xt = torch.as_tensor(x, device=dev)
+    square = bsr_spmm(blockify(src, dst, w, n, device=dev), xt[:n])
+    for r in range(2):
+        keep = w_p[r] != 0
+        adj = csr_matrix(src_p[r][keep], dstl_p[r][keep], w_p[r][keep], rows, 2 * rows,
+                         device=dev)
+        before = bsr_spmm.launches
+        got = bsr_spmm(adj, xt)
+        torch.cuda.synchronize()
+        assert bsr_spmm.launches == before + 1 and got.shape == (rows, c)
+        np.testing.assert_allclose(got.cpu().numpy(), csr_spmm_reference(adj, xt).cpu().numpy(),
+                                   **BSR_TOL)
+        dense = np.zeros((rows, 2 * rows), np.float32)
+        np.add.at(dense, (dstl_p[r][keep], src_p[r][keep]), w_p[r][keep])
+        np.testing.assert_allclose(got.cpu().numpy(), dense @ x, **BSR_TOL)
+        lo, hi = r * rows, min((r + 1) * rows, n)
+        assert torch.equal(got[: hi - lo], square[lo:hi])
+
+
+@pytest.mark.gpu
+def test_world_one_nccl_sharded_precompute_equals_one_process(tmp_path, monkeypatch):
+    """At world size 1 over NCCL the collectives are present and trivial:
+    ``precompute_pos_sharded``, ``dist_power_chain`` and
+    ``precompute_sop_sharded`` equal their single-process counterparts bit
+    for bit, and the kernels launch. A PoS dataset over the device budget
+    stays in the host tier, as one process keeps it."""
+    import torch.distributed as dist
+
+    from s3grl_tpu_torch.operators import pos as pos_module
+
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.operators.pos import precompute_pos
+    from s3grl_tpu_torch.operators.sop import host_normalized_edges, precompute_sop
+    from s3grl_tpu_torch.ops.spmm_kernel import power_chain
+    from s3grl_tpu_torch.parallel import dist as pdist
+    from s3grl_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from torch_port_helpers import usair_like_edges
+
+    _cuda("it runs NCCL on the card")
+    rng = np.random.default_rng(3)
+    ei = usair_like_edges(1)
+    x = rng.normal(size=(332, 33)).astype(np.float32)
+    links = rng.integers(0, 332, (300, 2)).astype(np.int32)
+    y = rng.integers(0, 2, 300).astype(np.float32)
+    init_distributed(0, 1, "cuda", init_method=f"file://{tmp_path / 'store'}")
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh()
+        dg = DeviceGraph.from_graph(Graph(num_nodes=332, edge_index=ei, x=x), device="cuda")
+        kw = dict(num_hops=2, sign_k=3, batch_size=64, max_subgraph_nodes=256, seed=1)
+        want = precompute_pos(dg, links, y, **kw)
+        before = pos_power_rows.launches
+        got = pdist.precompute_pos_sharded(mesh, dg, links, y, **kw)
+        assert pos_power_rows.launches > before
+        assert torch.equal(got.xs, want.xs) and torch.equal(got.row_mask, want.row_mask)
+        with monkeypatch.context() as m:
+            m.setattr(pos_module, "DEVICE_DS_BYTES", 1)
+            want = precompute_pos(dg, links, y, **kw)
+            got = pdist.precompute_pos_sharded(mesh, dg, links, y, **kw)
+        assert want.xs.device.type == got.xs.device.type == got.row_mask.device.type == "cpu"
+        assert torch.equal(got.xs, want.xs) and torch.equal(got.row_mask, want.row_mask)
+        src, dst, w = host_normalized_edges(dg)
+        before = bsr_spmm.launches
+        chain = pdist.dist_power_chain(mesh, src, dst, w, dg.x, 3)
+        assert bsr_spmm.launches == before + 3
+        assert torch.equal(pdist.gather_rows(mesh, chain, 332),
+                           power_chain(blockify(src, dst, w, 332, device="cuda"), dg.x, 3))
+        sop = pdist.precompute_sop_sharded(mesh, dg, links, y, sign_k=3)
+        assert torch.equal(sop.xs, precompute_sop(dg, links, y, sign_k=3).xs)
+    finally:
+        dist.destroy_process_group()

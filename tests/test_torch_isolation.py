@@ -39,7 +39,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "models.gae", "models.svgae", "models.gic", "models.init_representation",
               "models.baselines", "models.walkpool", "train.walkpool_loop",
               "train.checkpoint", "profiling", "manager", "tuning", "analysis", "data.ogb",
-              "ops.segment", "native", "sampling.prng"):
+              "ops.segment", "native", "sampling.prng", "parallel", "parallel.mesh",
+              "parallel.dist", "parallel.scaling"):
         assert f"s3grl_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -100,6 +101,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from s3grl_tpu_torch.models.baselines import run_n2v, train_gnn, train_mf
     from s3grl_tpu_torch.manager import main as manager_main
     from s3grl_tpu_torch.tuning import ray_tune_helper
+    from s3grl_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from s3grl_tpu_torch.parallel.scaling import main as scaling_main, measure
 
     rng = np.random.default_rng(0)
     g = Graph(num_nodes=40, edge_index=random_edges(rng, n=40, e=80),
@@ -152,6 +155,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: ray_tune_helper(RunConfig(sign_type="PoS", optimize_sign=True,
                                           init_features="degree"), num_samples=1,
                                 max_epochs=1, grace_period=1, results_json=results),
+        lambda: init_distributed(0, 1, init_method=f"file://{tmp_path / 'store'}"),
+        lambda: make_mesh(),
+        lambda: measure(1),
+        lambda: scaling_main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

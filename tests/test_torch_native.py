@@ -8,7 +8,6 @@ device route, and within the kernel's bar (rtol 2e-3, atol 2e-4) against
 the JAX host route; its threshold; the CCN width and its warning.
 """
 import os
-import re
 import subprocess
 import sys
 import warnings
@@ -244,6 +243,11 @@ def test_host_extract_threshold(monkeypatch):
     assert not tpos.host_extract_route(td, 10, **kw)
 
 
+def _ccn_warning(w) -> str:
+    """A "CCN width capped" warning up to its advice (" Raise ...")."""
+    return str(w.message).split(" Raise ")[0]
+
+
 @pytest.mark.parametrize("cap", [64, 3])
 def test_ccn_width_gives_the_jax_width_and_warning(cap):
     """The exact maximum CCN count, or ``cap`` below it with the JAX
@@ -257,11 +261,39 @@ def test_ccn_width_gives_the_jax_width_and_warning(cap):
             warnings.simplefilter("always")
             got = tpos.measure_ccn_width(td, links, strategy, cap)
         assert got == want
-        # The same warnings, up to the JAX package's pad-percentile wording.
-        assert len(wt) == len(wj)
-        for a, b in zip(wt, wj):
-            assert str(a.message).startswith(f"CCN width capped at {got} (cap {cap})")
-            assert re.findall(r"measured max \d+: \d+/\d+ links", str(a.message)) == \
-                re.findall(r"measured max \d+: \d+/\d+ links", str(b.message))
+        # The same warnings, word for word (the pad percentile included) up
+        # to the advice, which names the JAX package's switch.
+        assert [_ccn_warning(w) for w in wt] == [_ccn_warning(w) for w in wj]
         if cap == 3 and strategy == "union":
             assert any("CCN width capped" in str(w.message) for w in wt)
+
+
+@pytest.mark.parametrize("pct", ["100", "90"])
+def test_ccn_pad_percentile_gives_the_jax_width_and_warning(pct, monkeypatch):
+    """``operators/pos.CCN_PAD_PCT`` against the JAX package's
+    ``S3GRL_TPU_CCN_PAD_PCT``: at 100 (the constant's value) the exact
+    maximum and no warning; at 90 the 90th percentile of the counts, with
+    the JAX package's "CCN width capped" warning word for word up to its
+    advice; and PoS+'s padded width on top of it."""
+    jd, td, links, _ = _pos_graph(5, n=60)
+    assert tpos.CCN_PAD_PCT == 100
+    monkeypatch.setenv("S3GRL_TPU_CCN_PAD_PCT", pct)
+    monkeypatch.setattr(tpos, "CCN_PAD_PCT", int(pct))
+    for strategy in ("union", "intersection"):
+        with warnings.catch_warnings(record=True) as wj:
+            warnings.simplefilter("always")
+            want = jpos.measure_ccn_width(jd, links, strategy, 64)
+        with warnings.catch_warnings(record=True) as wt:
+            warnings.simplefilter("always")
+            got = tpos.measure_ccn_width(td, links, strategy, 64)
+        assert got == want
+        assert [_ccn_warning(w) for w in wt] == [_ccn_warning(w) for w in wj]
+        if strategy == "union":
+            assert bool(wt) == (pct == "90")
+        # PoS+'s width: rounded up to a power of two from 8, capped.
+        r = 8
+        while r < want:
+            r *= 2
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            assert tpos.padded_ccn_width(td, links, strategy, 64) == min(64, r)
