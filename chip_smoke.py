@@ -38,7 +38,7 @@ non-zero without the final line:
    each one's prep, train rate, peak memory, kernel launches and best test
    AUC against the JAX package's;
 7. repeat: each path of ``REPEAT_PATHS`` (SoP, hybrid, SEAL, PoS-n2v,
-   PoS-sampled) twice at ``REPEAT_EPOCHS`` epochs; the two best test AUCs,
+   PoS-sampled, pairwise with ``auc_loss``) twice at ``REPEAT_EPOCHS`` epochs; the two best test AUCs,
    printed, must be equal to the last bit;
 8. WalkPool: configs/paper/walkpool.json's USAir_WalkPool at its widths
    (S = 512 on this graph), cut in links and epochs only (``WALKPOOL``);
@@ -64,7 +64,14 @@ non-zero without the final line:
     ``ratio_per_hop`` 0.5 and SEAL with ``max_nodes_per_hop`` 10, each
     one's prep, train rate, peak memory and best test AUC against the JAX
     package's (the first also in the repeat phase);
-13. multi-device (``phase_multi_device``): ``s3grl_tpu_torch/parallel`` at
+13. pairwise and validation edges: the bench config with pairwise training
+    and one negative a positive, once with each PLNLP loss
+    (``PAIRWISE_PATHS``), whose train loss must fall and whose best test
+    AUC must be within slack of the JAX package's; then one run with
+    ``use_valedges_as_input`` (``VALEDGES``), whose observed graph and
+    datasets must equal those of a run on the graph with the valid edges
+    joined by hand, and whose AUC is held against the JAX package's;
+14. multi-device (``phase_multi_device``): ``s3grl_tpu_torch/parallel`` at
     world size 1 over NCCL in this process (the sharded PoS, the
     row-partitioned chain and the sharded SoP of the main path's train split
     bit for bit against one process, one epoch of data-parallel training,
@@ -72,7 +79,7 @@ non-zero without the final line:
     alone on rank 0's 166-row shard of a 2-way partition against its plain
     version, then the same checks in two ranks spawned on the one card over
     gloo (NCCL takes one rank a card);
-14. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
+15. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
     by ``torch.profiler``, on inputs built again; then one profiled
     1-epoch run of each path of ``IDLE_PATHS`` (one of each kind: a label
     path, a ScaLed path, an init path, a heuristic, WalkPool) for its
@@ -117,6 +124,9 @@ EPOCHS = 5
 #   ... --model WalkPool                                      (WALKPOOL's cut)
 #   ... --ratio_per_hop 0.5                                   (PoS-sampled)
 #   ... --epochs 2 --model DGCNN --max_nodes_per_hop 10       (SEAL-sampled)
+#   ... --pairwise --loss_fn auc_loss|weighted_auc_loss|hinge_auc_loss
+#                                                             (PAIRWISE_PATHS)
+#   ... --use_valedges_as_input                               (valedges)
 JAX_REFERENCE_AUC = {
     "PoS": 77.23776146708104,
     "SoP": 76.65145804403888,
@@ -136,6 +146,10 @@ JAX_REFERENCE_AUC = {
     "WalkPool": 92.15323238334545,
     "PoS-sampled": 75.6309374242324,
     "SEAL-sampled": 85.48788820560294,
+    "pairwise-auc_loss": 47.210650444135865,
+    "pairwise-weighted_auc_loss": 47.210650444135865,
+    "pairwise-hinge_auc_loss": 45.610438845908,
+    "valedges": 77.07685864797548,
 }
 AUC_SLACK = 3.0  # the port may fall at most 0.03 below it
 # A label path's slack is the larger of AUC_SLACK and the spread (max - min)
@@ -147,14 +161,22 @@ AUC_SLACK = 3.0  # the port may fall at most 0.03 below it
 # 78.2579, GIC-init 81.0311 / 79.9655 / 77.0941, SVGAE-init 83.6254 /
 # 80.3695 / 83.1055. WalkPool (--model WalkPool, WALKPOOL's cut): 92.1532 /
 # 92.1696 / 91.6215. PoS-sampled 75.6309 / 74.2838 / 69.3969, SEAL-sampled
-# 85.4879 / 81.6731 / 81.5945.
+# 85.4879 / 81.6731 / 81.5945. Pairwise (near chance on this graph: the
+# reference's two forward passes a step each normalize their own batch)
+# auc_loss and weighted_auc_loss (the same function at one negative a
+# positive) 47.2107 / 54.5179 / 46.4233, hinge_auc_loss 45.6104 / 54.6139 /
+# 46.1765; valedges 77.0769 / 73.8667 / 71.2158.
 JAX_AUC_RANGE = {"SEAL": 2.4578466955183416, "GCN-DE": 5.781168192427586,
                  "PoS-sampled": 6.234046866105061, "SEAL-sampled": 3.89342580714019,
                  "WalkPool": 0.54808280199144,
                  "fullrow": 10.44373237128417, "PoS-n2v": 6.019303891107455,
                  "ScaLed": 7.6048934908669565, "ScaLed-Plus": 3.3783484351946385,
                  "GAE-init": 5.140429248978563, "GIC-init": 3.937031180164695,
-                 "SVGAE-init": 3.2559183886913843}
+                 "SVGAE-init": 3.2559183886913843,
+                 "pairwise-auc_loss": 8.09459341427199,
+                 "pairwise-weighted_auc_loss": 8.09459341427199,
+                 "pairwise-hinge_auc_loss": 9.003501236195241,
+                 "valedges": 5.8610319382191705}
 # A heuristic is deterministic: its raw AUC must equal the JAX package's
 # within this.
 HEURISTIC_AUC_TOL = 0.005
@@ -245,10 +267,17 @@ SCALED_PATHS = ("ScaLed", "ScaLed-Plus")
 # sampling).
 SAMPLED_PATHS = {"PoS-sampled": (dict(ratio_per_hop=0.5), EPOCHS),
                  "SEAL-sampled": ({**TABLE_2, "max_nodes_per_hop": 10}, 2)}
+# Pairwise training (the reference's train_pairwise with the PLNLP losses)
+# and the validation edges joined to the observed graph: RunConfig fields
+# over BENCH, EPOCHS epochs each.
+PAIRWISE_PATHS = {f"pairwise-{f}": dict(pairwise=True, neg_ratio=1, loss_fn=f)
+                  for f in ("auc_loss", "weighted_auc_loss", "hinge_auc_loss")}
+VALEDGES = dict(use_valedges_as_input=True)
 REPEAT_PATHS = {"SoP": dict(sign_type="SoP", pool_operatorwise=True),
                 "hybrid": dict(sign_type="hybrid", pool_operatorwise=True),
                 "SEAL": TABLE_2, "PoS-n2v": INIT_PATHS["PoS-n2v"],
-                "PoS-sampled": SAMPLED_PATHS["PoS-sampled"][0]}
+                "PoS-sampled": SAMPLED_PATHS["PoS-sampled"][0],
+                "pairwise-auc_loss": PAIRWISE_PATHS["pairwise-auc_loss"]}
 REPEAT_EPOCHS = 2
 BASELINE_SEEDS = (1, 2, 3)
 # The JAX package's best test AUC of each of BASELINES over seeds 1-3, each
@@ -1095,17 +1124,35 @@ def phase_baselines() -> dict:
     return rows
 
 
+class StopBeforeTraining(Exception):
+    pass
+
+
 class FitRecorder:
     """Wraps the runner's ``fit_signnet`` to keep the last run's per-epoch
-    results (the runner returns only the best one)."""
+    results (the runner returns only the best one), its train loss each
+    epoch and the datasets and keywords it was given; with ``stop`` it raises
+    :class:`StopBeforeTraining` instead of training."""
 
-    def __init__(self):
+    def __init__(self, stop: bool = False):
         from s3grl_tpu_torch import runner
 
         self.runner, self.real, self.last = runner, runner.fit_signnet, None
+        self.stop, self.losses, self.datasets, self.kwargs = stop, [], None, None
 
     def __enter__(self):
         def fit(*a, **kw):
+            self.datasets, self.kwargs = a[:3], dict(kw)
+            if self.stop:
+                raise StopBeforeTraining
+            hook = kw.get("logger_hook")
+
+            def record(epoch, loss, results):
+                self.losses.append(loss)
+                if hook is not None:
+                    hook(epoch, loss, results)
+
+            kw["logger_hook"] = record
             self.last = self.real(*a, **kw)
             return self.last
 
@@ -1491,6 +1538,132 @@ def phase_sampled_paths(cfg, graph, split) -> dict:
     return rows
 
 
+def phase_pairwise(cfg, graph, split) -> dict:
+    """Each of PAIRWISE_PATHS once, EPOCHS epochs, with every kernel's count
+    set to 0 just before it and read just after: its train loss each epoch
+    (falling from the first epoch to the last), prep, train rate and best
+    test AUC against the JAX package's on the same graph and config; then
+    one epoch of it on the card against the CPU
+    (:func:`pairwise_card_against_cpu`). The AUC, near chance on this graph
+    in both packages, shows only that the path runs; the CPU comparison and
+    tests/test_torch_pairwise.py (the JAX package's step within 1e-5) hold
+    its numbers."""
+    import dataclasses
+
+    import torch
+
+    from s3grl_tpu_torch.runner import run_sgrl_learning
+
+    rows = {}
+    for name, fields in PAIRWISE_PATHS.items():
+        c = dataclasses.replace(cfg, **fields)
+        zero_counts()
+        with FitRecorder() as rec:
+            prep, best, train_times, _, _ = run_sgrl_learning(c, graph, split, device="cuda")
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        print(f"e2e {name}: prep {prep:.3f} s, train {sum(train_times):.3f} s ({c.epochs} epochs "
+              f"of batches of {c.batch_size} positives and {c.batch_size * c.neg_ratio} "
+              f"negatives), train loss by epoch {[round(x, 6) for x in rec.losses]}, best test "
+              f"AUC {best:.4f}, launches {counts}")
+        if (len(rec.losses) != c.epochs or not np.isfinite(rec.losses).all()
+                or not rec.losses[-1] < rec.losses[0]):
+            raise AssertionError(f"{name}: the train loss did not fall: {rec.losses}")
+        if counts["pos_power_rows"] == 0:
+            raise AssertionError(f"the {name} path never launched pos_power_rows")
+        check_auc(name, best)
+        pairwise_card_against_cpu(name, rec)
+        rows[name] = counts
+    return rows
+
+
+# One pairwise epoch on the card and on the CPU may part by at most this in
+# their train loss, relative (float32 sums in another order, over one epoch
+# of Adam steps).
+PAIRWISE_CPU_RTOL = 1e-4
+
+
+def pairwise_card_against_cpu(name: str, rec) -> float:
+    """One epoch of the recorded run's own ``fit_signnet`` call, dropout
+    0, on the card and on the CPU from the same datasets (the weights come
+    from a CPU generator, the permutations from numpy, so both start alike):
+    their train losses must agree within PAIRWISE_CPU_RTOL. Returns the
+    relative difference."""
+    kw = {**rec.kwargs, "epochs": 1, "dropout": 0.0}
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        got = []
+        rec.real(*rec.datasets, **{**kw, "device": dev,
+                                   "logger_hook": lambda e, loss, r: got.append(loss)})
+        losses[dev] = got[0]
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    print(f"  {name}: one epoch at dropout 0, train loss on the card {losses['cuda']!r}, on "
+          f"the CPU {losses['cpu']!r}: relative difference {rel:.3e} "
+          f"(bar {PAIRWISE_CPU_RTOL})")
+    if not rel <= PAIRWISE_CPU_RTOL:
+        raise AssertionError(f"{name}: one epoch's loss on the card and on the CPU differ by "
+                             f"{rel:.3e}, relative")
+    return rel
+
+
+def phase_valedges(cfg, graph, split) -> dict:
+    """The bench config with ``use_valedges_as_input``, EPOCHS epochs: its
+    observed graph (the one ``precompute_split`` is given) holds the valid
+    edges both ways, and its datasets equal bit for bit those of a run on
+    the graph built by hand (the split graph's degree features, the valid
+    edges joined; stopped before its training); its best test AUC against
+    the JAX package's."""
+    import dataclasses
+
+    import torch
+
+    from s3grl_tpu_torch import runner
+    from s3grl_tpu_torch.data.features import init_features
+    from s3grl_tpu_torch.data.graph import to_undirected
+
+    seen = []
+    real = runner.precompute_split
+
+    def precompute(dg, *a, **kw):
+        seen.append(dg.host_edges()[:2])
+        return real(dg, *a, **kw)
+
+    # By hand: the features of the split's graph (the runner joins the valid
+    # edges after the feature init), then the valid edges both ways.
+    hand = init_features(graph, cfg.init_features).with_edges(np.concatenate(
+        [graph.edge_index, to_undirected(split.valid_pos.T.astype(np.int32))], axis=1), None)
+    c = dataclasses.replace(cfg, **VALEDGES)
+    runner.precompute_split = precompute
+    try:
+        zero_counts()
+        with FitRecorder() as rec:
+            prep, best, _, _, _ = runner.run_sgrl_learning(c, graph, split, device="cuda")
+        counts = kernel_counts()
+        with FitRecorder(stop=True) as by_hand:
+            try:
+                runner.run_sgrl_learning(
+                    dataclasses.replace(c, use_valedges_as_input=False, init_features=""),
+                    hand, split, device="cuda")
+            except StopBeforeTraining:
+                pass
+    finally:
+        runner.precompute_split = real
+    (src, dst), (h_src, h_dst) = seen[0], seen[3]
+    added = len(src) - graph.edge_index.shape[1]
+    print(f"e2e valedges: observed edges {graph.edge_index.shape[1]} + {added} "
+          f"(valid {len(split.valid_pos)} both ways); prep {prep:.3f} s, best test AUC "
+          f"{best:.4f}, launches {counts}")
+    if not (np.array_equal(src, h_src) and np.array_equal(dst, h_dst)
+            and added == 2 * len(split.valid_pos)):
+        raise AssertionError("the observed graph is not the split's graph with the valid edges")
+    for a, b in zip(rec.datasets, by_hand.datasets):
+        if not (torch.equal(a.xs, b.xs) and torch.equal(a.row_mask, b.row_mask)):
+            raise AssertionError("the valedges datasets differ from the hand-built graph's")
+    print("  datasets equal to the hand-built graph's bit for bit")
+    check_auc("valedges", best)
+    return counts
+
+
 def multi_device_checks(mesh, cfg, graph, split) -> dict:
     """On one rank of ``mesh`` (every rank runs it): the main path's train
     split through ``precompute_pos_sharded``, the row-partitioned chain and
@@ -1716,6 +1889,8 @@ def main(argv=None) -> int:
                "OGB": timed("OGB", phase_ogb, cfg, graph, split)}
     large = timed("large graphs", phase_large_graphs, cfg, graph, split, power_limit)
     sampled = timed("sampled paths", phase_sampled_paths, cfg, graph, split)
+    pairwise = timed("pairwise", phase_pairwise, cfg, graph, split)
+    valedges = timed("valedges", phase_valedges, cfg, graph, split)
     multi = timed("multi-device", phase_multi_device, cfg, graph, split, power_limit)
     timed("device times", phase_device_times, cfg, graph, split, rows, bsr_rows, power_limit)
     timed("idle", phase_idle, cfg, graph, split, power_limit)
@@ -1734,6 +1909,8 @@ def main(argv=None) -> int:
                       **{t: r[name] for t, r in tooling.items()},
                       **{t: r[name] for t, r in large["launches"].items()},
                       **{t: r[name] for t, r in sampled.items()},
+                      **{t: r[name] for t, r in pairwise.items()},
+                      "valedges": valedges[name],
                       **{t: r[name] for t, r in multi["launches"].items()}}
                for name in WRAPPERS}
     local = {k: v for k, v in rows.items() if k.split()[0] in SCALED_PATHS}

@@ -36,7 +36,9 @@ the scan route, the ``vmem_ok`` gate (every bucket goes through the kernel
 here), the staircase slot permutation (it changes only the TPU kernel's
 densify cost) and padding batches to a fixed size. Left out too: the
 JAX package's opt-in local-table route (``S3GRL_TPU_LOCAL_TAB``; on the
-card building the tables on the host cost more than the kernel saved) and
+card building the tables on the host cost more than the kernel saved, on a
+hub graph and on a graph of small local degrees beside a wide global
+table alike; ROADMAP.md lists the measurements) and
 its pipelined whole-split pass (one pass bucketed once was faster on the
 card). The JAX package's CCN percentile pad (``S3GRL_TPU_CCN_PAD_PCT``)
 is the constant :data:`CCN_PAD_PCT`, 100 (the exact maximum): no workload

@@ -7,7 +7,9 @@
         [--init_features n2v --n2v_dim 16] [--m 3 --M 20 --num_hops 0] \
         [--k_heuristic 1] [--init_representation GAE|GIC|SVGAE] \
         [--use_heuristic CN|AA|PPR] [--ratio_per_hop 0.5] \
-        [--max_nodes_per_hop 10]
+        [--max_nodes_per_hop 10] \
+        [--pairwise --loss_fn auc_loss|weighted_auc_loss|hinge_auc_loss] \
+        [--use_valedges_as_input]
     JAX_PLATFORMS=cpu python scripts/jax_synthetic_auc.py --seed 1 --epochs 5 \
         --model WalkPool
     JAX_PLATFORMS=cpu python scripts/jax_synthetic_auc.py --seed 1 \
@@ -37,6 +39,11 @@ configs on ``tests/torch_port_helpers.usair_like_edges(seed)``, split as
 - ``--ratio_per_hop``/``--max_nodes_per_hop``: per-hop sampling over the
   path the other flags name (``chip_smoke.SAMPLED_PATHS``), with no other
   field changed;
+- ``--pairwise --loss_fn ...``: pairwise training with that PLNLP loss and
+  one negative a positive (``chip_smoke.PAIRWISE_PATHS``), and
+  ``--use_valedges_as_input``: the validation positives joined to the
+  observed graph (``chip_smoke.VALEDGES``), each over the path the other
+  flags name, with no other field changed;
 - ``--model WalkPool``: ``chip_smoke.WALKPOOL``, configs/paper/walkpool.json's
   USAir_WalkPool at its widths, cut to 10 % of the train links (about 15
   minutes on a CPU at 5 epochs);
@@ -134,6 +141,10 @@ def main(argv=None) -> None:
     ap.add_argument("--use_heuristic", choices=("CN", "AA", "PPR"))
     ap.add_argument("--ratio_per_hop", type=float)
     ap.add_argument("--max_nodes_per_hop", type=int)
+    ap.add_argument("--pairwise", action="store_true")
+    ap.add_argument("--loss_fn", choices=("auc_loss", "weighted_auc_loss", "hinge_auc_loss"),
+                    default="auc_loss", help="the pairwise loss (with --pairwise)")
+    ap.add_argument("--use_valedges_as_input", action="store_true")
     args = ap.parse_args(argv)
     extra = {k: getattr(args, k) for k in (
         "init_features", "n2v_dim", "m", "M", "num_hops", "k_heuristic",
@@ -150,9 +161,13 @@ def main(argv=None) -> None:
         return baseline_auc(args.baseline, args.seed)
     optimize = args.optimize_sign == "true"
     fields = config_fields(args.model, args.sign_type, args.node_label, optimize, extra)
-    sampling = {k: getattr(args, k) for k in ("ratio_per_hop", "max_nodes_per_hop")
+    overrides = {k: getattr(args, k) for k in ("ratio_per_hop", "max_nodes_per_hop")
                 if getattr(args, k) is not None}
-    fields.update(sampling)
+    if args.pairwise:
+        overrides.update(pairwise=True, loss_fn=args.loss_fn, neg_ratio=1)
+    if args.use_valedges_as_input:
+        overrides["use_valedges_as_input"] = True
+    fields.update(overrides)
     if args.model == "SIGN" and not optimize:
         # The JAX full-row flow gathers [B, S, D, Z+F] per batch; 16 links a
         # batch keep that small on a CPU. Batching changes no output.
@@ -168,8 +183,8 @@ def main(argv=None) -> None:
         prep, best, _, _, _ = run_sgrl_learning(cfg, graph, split)
     what = (args.sign_type if args.model == "SIGN" and optimize
             else "WalkPool" if args.model == "WalkPool" else f"{args.model} {cfg.node_label}" + ("" if optimize else " full-row"))
-    if extra or sampling:
-        what += " " + " ".join(f"{k}={v}" for k, v in {**extra, **sampling}.items())
+    if extra or overrides:
+        what += " " + " ".join(f"{k}={v}" for k, v in {**extra, **overrides}.items())
     print(f"{what} seed {args.seed} epochs {args.epochs}: best test AUC {best!r} "
           f"(prep {prep:.1f} s on {os.environ.get('JAX_PLATFORMS', 'default')})")
 
