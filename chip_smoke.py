@@ -12,8 +12,12 @@ non-zero without the final line:
    kernel's registers, shared memory and spills from ``-Xptxas -v``;
 3. kernels: each kernel of the paths against its plain torch version on
    the card, at the main path's shapes and on the main path's data, with
-   its time by CUDA events, the plain version's time and the least time
-   the card could take; for ``pos_power_rows`` also its selector phase
+   its device time (``s3grl_tpu_torch/utils/timing.graph_ms``: 20 calls
+   replayed from one CUDA graph, timed by events), its time a call on the
+   stream (``call_ms``: events around 20 eager calls), the host's time to
+   enqueue a call, the SM clock during the readings, the plain version's
+   time and the least time the card could take (``ops/*_kernel.work`` over
+   ``utils/device.PEAK_RATES``); for ``pos_power_rows`` also its selector phase
    against its plain version and alone (and at K = 0: the table pass), and
    the resolved neighbor entries; ``bsr_spmm`` on the SoP chain, on SoP's
    first batch of one-hot endpoint columns (C = 2B = 8,192) and on a
@@ -79,12 +83,15 @@ non-zero without the final line:
     alone on rank 0's 166-row shard of a 2-way partition against its plain
     version, then the same checks in two ranks spawned on the one card over
     gloo (NCCL takes one rank a card);
-15. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
-    by ``torch.profiler``, on inputs built again; then one profiled
-    1-epoch run of each path of ``IDLE_PATHS`` (one of each kind: a label
-    path, a ScaLed path, an init path, a heuristic, WalkPool) for its
-    device idle share. It comes last, so that no profiler session has run
-    in the process while the paths are timed.
+15. bench: ``python3 bench_torch.py`` in its own process (``phase_bench``
+    says what its last line must hold);
+16. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
+    by ``torch.profiler`` (``phase_device_times``: per-launch means over the
+    device events kept), held against the graph replay at ``TIMER_ROWS``;
+    then one profiled 1-epoch run of each path of
+    ``IDLE_PATHS`` (one of each kind: a label path, a ScaLed path, an init
+    path, a heuristic, WalkPool) for its device idle share. It comes last:
+    a profiler session leaves every later launch in the process slower.
 
 Every kernel count is set to 0 just before each path and read just after;
 the kernels line gives each kernel's launches on every path.
@@ -185,8 +192,6 @@ BSR_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_pallas_spmm.py's bar
 # The end-to-end paths, each with the kernels it must launch.
 PATHS = {"PoS": ("pos_power_rows",), "SoP": ("bsr_spmm",),
          "hybrid": ("pos_power_rows", "bsr_spmm")}
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-FP32_FLOP_PER_S = 67e12  # float32 outside the tensor cores, the same sheet
 
 
 # bench.py:432-437's run.
@@ -319,46 +324,6 @@ def split_graph(cfg):
     return do_edge_split(
         g, val_ratio=cfg.split_val_ratio, test_ratio=cfg.split_test_ratio, rng=rng
     )
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over ``reps`` calls, by CUDA events,
-    after two warm calls."""
-    import torch
-
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms_by_kernel(fn, reps: int) -> dict[str, float]:
-    """Device milliseconds per call of each kernel (by short name) that
-    ``fn`` launches, from ``torch.profiler`` over ``reps`` calls after a
-    warm one."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            name = re.sub(r"^(void )?(\(anonymous namespace\)::)?", "", e.name)
-            name = re.split(r"[<(]", name)[0][:60]
-            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
-    return by_name
 
 
 def device_time(prof) -> tuple[float, dict[str, float], int]:
@@ -494,44 +459,38 @@ def scaled_kernel_cases(cfg, dg, split):
     return cases
 
 
-def bound_ms_of(n_bytes: float, flops: float) -> tuple[float, str]:
-    """(bound_ms, bound_by): the larger of the bytes over the card's memory
-    rate and the operations over its f32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def card_rates():
+    """The card's peak rates (``utils.device.PEAK_RATES``), None for a card
+    not listed there: its bounds and shares are then printed as unknown."""
+    import torch
+
+    from s3grl_tpu_torch.utils.device import peak_rates
+
+    return peak_rates(torch.cuda.get_device_name(0))
 
 
-def bound_of(kw, node_mask) -> tuple[float, str, float, float, np.ndarray, float, float]:
+def f4(x) -> str:
+    return "unknown" if x is None else f"{x:.4f}"
+
+
+def ratio(a, b):
+    return None if a is None or b is None else a / b
+
+
+def bound_of(kw, node_mask) -> tuple:
     """(bound_ms, bound_by, bytes, flops, resolved entries per subgraph,
-    bound_ms over every padded slot, bound_ms over the member rows' real
-    degrees) for one call. The bound counts what this data needs: the
-    member slots' rows (``node_mask``) of the table, its weights, X and the
-    row ids, each read once, the output written once; one multiply-add per
-    resolved neighbor entry and selected row per step, and one per (k >= 1,
-    row, member node, feature) for the output. A padded slot adds nothing
-    to the output. The degree bound reads of each member row only its live
-    entries (weight != 0), not the table's padded width."""
-    from s3grl_tpu_torch.ops.pos_kernel import _resolve_slots
+    bound_ms over every padded slot, bound_ms over the member rows' live
+    entries) of one ``pos_power_rows`` call: ``pos_kernel.work`` (its
+    docstring says what it counts) over the card's peak rates."""
+    from s3grl_tpu_torch.ops.pos_kernel import resolved_entries, work
+    from s3grl_tpu_torch.utils.device import bound_ms
 
-    sel, nbr, w, x, K = kw["sel_idx"], kw["nbr"], kw["w"], kw["subg_x"], kw["sign_k"]
-    B, S, D = nbr.shape
-    F, R = x.shape[2], sel.shape[1]
-    ids = kw["row_ids"] is not None
-
-    def bytes_flops(rows, entries, table_entries):
-        return (4 * (2 * table_entries + rows * F + B * (K + 1) * R * F + B * R
-                     + (rows if ids else 0)),
-                2.0 * (K * R * entries + K * R * rows * F))
-
-    _, found = _resolve_slots(nbr, kw["row_ids"], S)
-    per_subgraph = (found & (w.reshape(B, -1) != 0)).sum(dim=1).cpu().numpy()
-    entries = int(per_subgraph.sum())
-    rows = int(node_mask.sum())
-    live = int(((w != 0) & node_mask[:, :, None]).sum())
-    n_bytes, flops = bytes_flops(rows, entries, rows * D)
-    padded_ms, _ = bound_ms_of(*bytes_flops(B * S, entries, B * S * D))
-    degree_ms, _ = bound_ms_of(*bytes_flops(rows, entries, live))
-    return (*bound_ms_of(n_bytes, flops), n_bytes, flops, per_subgraph, padded_ms, degree_ms)
+    rates = card_rates()
+    counts = {c: work(**kw, node_mask=node_mask, count=c) for c in ("members", "padded", "live")}
+    per_subgraph = resolved_entries(kw["nbr"], kw["w"], kw["row_ids"]).cpu().numpy()
+    return (*bound_ms(counts["members"], rates), counts["members"].n_bytes,
+            counts["members"].flops, per_subgraph, bound_ms(counts["padded"], rates)[0],
+            bound_ms(counts["live"], rates)[0])
 
 
 def phase_kernels(cfg, graph, split, power_limit: str):
@@ -542,6 +501,7 @@ def phase_kernels(cfg, graph, split, power_limit: str):
         pos_power_rows, pos_power_rows_reference, pos_selector_rows,
         pos_selector_rows_reference,
     )
+    from s3grl_tpu_torch.utils import timing
 
     cases, D, F = kernel_cases(cfg, graph, split)
     print(f"kernel phase: D={D} F={F + 1} (features + indicator) K={cfg.sign_k}; "
@@ -568,30 +528,36 @@ def phase_kernels(cfg, graph, split, power_limit: str):
         if h_err > TOL["atol"]:
             raise AssertionError(f"pos_selector_rows disagrees with its plain version at "
                                  f"{label}: max abs err {h_err} (atol {TOL['atol']})")
-        ms = cuda_ms(lambda: pos_power_rows(**kw), reps=20)
+        fn = lambda: pos_power_rows(**kw)  # noqa: E731
+        with timing.ClockSampler() as clocks:
+            ms, device_ms = timing.call_ms(fn), timing.graph_ms(fn)
+        host_ms = timing.host_ms(fn)
         B, S, Dk = kw["nbr"].shape
         lib = pos_kernel._lib()
         # The selector phase alone, and at K = 0: its one pass over the table
         # (with the hash build and the scaling) without the K steps.
-        phase1_ms, table_ms = (cuda_ms(lambda: pos_kernel._selector_rows_cuda(
+        phase1_ms, table_ms = (timing.graph_ms(lambda: pos_kernel._selector_rows_cuda(
             lib, kw["sel_idx"], kw["nbr"], kw["w"], kw["row_ids"], k, B, S, Dk,
-            kw["sel_idx"].shape[1]), reps=20) for k in (kw["sign_k"], 0))
-        plain_ms = cuda_ms(lambda: pos_power_rows_reference(**kw), reps=3)
+            kw["sel_idx"].shape[1])) for k in (kw["sign_k"], 0))
+        plain_ms = timing.call_ms(lambda: pos_power_rows_reference(**kw), reps=3)
         bound_ms, by, n_bytes, flops, nnz, padded_ms, degree_ms = bound_of(kw, node_mask)
         members = int(node_mask.sum())
         cap = lib.s3grl_pos_list_cap(S, Dk)
-        rows[label] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+        rows[label] = dict(max_abs_err=max_abs, ms=ms, device_ms=device_ms, host_ms=host_ms,
+                           plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=by, phase1_ms=phase1_ms,
                            resolved_entries=int(nnz.sum()), member_rows=members,
                            padded_bound_ms=padded_ms, degree_bound_ms=degree_ms)
         print(f"  {label}: max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} "
-              f"(selector rows {h_err:.3e}) kernel {ms:.4f} ms (selector phase "
-              f"{phase1_ms:.4f} ms, of it the table pass {table_ms:.4f} ms) "
-              f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
-              f"({by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP over {members} "
-              f"member rows of {B * S}; {padded_ms:.4f} ms over every padded slot, "
-              f"{degree_ms:.4f} ms over the member rows' live entries) "
-              f"share of bound {bound_ms / ms:.3f}; resolved entries {int(nnz.sum())} "
+              f"(selector rows {h_err:.3e}) kernel {device_ms:.4f} ms device by graph "
+              f"replay, {ms:.4f} ms a call on the stream, {host_ms:.4f} ms of host a call "
+              f"(SM clock MHz min/median/max {clocks.summary().get('sm_mhz')}) (selector "
+              f"phase {phase1_ms:.4f} ms, of it the table pass {table_ms:.4f} ms) plain "
+              f"{plain_ms:.4f} ms bound "
+              f"{f4(bound_ms)} ms ({by}: {n_bytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP over "
+              f"{members} member rows of {B * S}; {f4(padded_ms)} ms over every padded slot, "
+              f"{f4(degree_ms)} ms over the member rows' live entries) share of bound "
+              f"{f4(ratio(bound_ms, device_ms))}; resolved entries {int(nnz.sum())} "
               f"(per subgraph mean {nnz.mean():.1f}, max {int(nnz.max())}; "
               f"{int((nnz > cap).sum())} of {B} over the {cap}-entry shared-memory list)")
     return rows
@@ -644,6 +610,10 @@ def bsr_case(label, src, dst, n, x, power_k=0, w=None, rows=None):
         csr_spmm_reference,
         power_chain,
     )
+    from s3grl_tpu_torch.ops.spmm_kernel import work as spmm_work
+    from s3grl_tpu_torch.utils import timing
+    from s3grl_tpu_torch.utils.device import Work
+    from s3grl_tpu_torch.utils.device import bound_ms as bound_ms_for
 
     adj, (s_t, d_t, w_t), m_csr = bsr_inputs(src, dst, n, w, rows)
     rows = adj.num_nodes
@@ -671,40 +641,42 @@ def bsr_case(label, src, dst, n, x, power_k=0, w=None, rows=None):
         max_abs = max(max_abs, chain_err)
     torch.cuda.synchronize()
 
-    ms = cuda_ms(lambda: bsr_spmm(adj, x), reps=20)
-    plain_ms = cuda_ms(lambda: plain(adj, x), reps=3)
+    ms = timing.call_ms(lambda: bsr_spmm(adj, x))
+    device_ms = timing.graph_ms(lambda: bsr_spmm(adj, x))
+    host_ms = timing.host_ms(lambda: bsr_spmm(adj, x))
+    plain_ms = timing.call_ms(lambda: plain(adj, x), reps=3)
     edge_ms = None
     if rows == n:
         edges = edge_list(s_t, d_t, w_t, n)
-        edge_ms = cuda_ms(lambda: spmm(edges, x), reps=20)
-    library_ms = cuda_ms(lambda: torch.sparse.mm(m_csr, x), reps=20)
+        edge_ms = timing.call_ms(lambda: spmm(edges, x))
+    library_ms = timing.call_ms(lambda: torch.sparse.mm(m_csr, x))
 
-    # The bound is the least the function Y = M X needs: the nonzeros (value
-    # and column id, CSR row pointers), X read and Y written once, and one
-    # multiply-add per nonzero and column. The dense-block layout's own
-    # figure (every block whole, 2*NB*128^2*C FLOP, the JAX cost estimate's)
-    # is printed beside it (a blocked M only: a shard has no blocks).
+    # The bound is what the function Y = M X needs (spmm_kernel.work). The
+    # dense-block layout's own figure (every block whole, 2*NB*128^2*C FLOP,
+    # the JAX cost estimate's) is printed beside it (a blocked M only: a
+    # shard has no blocks).
     nnz = int(adj.csr_vals.numel())
-    n_bytes = 8 * nnz + 4 * (rows + 1) + 4 * (n + rows) * c
-    flops = 2.0 * nnz * c
-    bound_ms, by = bound_ms_of(n_bytes, flops)
+    need = spmm_work(adj, x)
+    n_bytes, flops = need.n_bytes, need.flops
+    bound_ms, by = bound_ms_for(need, card_rates())
     dense_ms, dense_note, nb = None, "", "n/a (CSR alone)"
     if blocked:
         nb, bs = adj.num_blocks, int(adj.blocks.shape[1])
         dense_bytes = 4 * (nb * bs * bs + (n + rows) * c + nb + adj.num_row_blocks + 1)
         dense_flops = 2.0 * nb * bs * bs * c
-        dense_ms, dense_by = bound_ms_of(dense_bytes, dense_flops)
-        dense_note = (f"; dense-block layout's bound {dense_ms:.4f} ms ({dense_by}: "
+        dense_ms, dense_by = bound_ms_for(Work(dense_bytes, dense_flops), card_rates())
+        dense_note = (f"; dense-block layout's bound {f4(dense_ms)} ms ({dense_by}: "
                       f"{dense_bytes / 1e6:.2f} MB, {dense_flops / 1e9:.3f} GFLOP)")
     edge = "n/a (a row shard)" if edge_ms is None else f"{edge_ms:.4f} ms"
     shape = f"N={n} C={c}" if rows == n else f"rows={rows} N_pad={n} C={c}"
     print(f"  bsr_spmm {label}: {shape} NB={nb} nnz={nnz} max_abs_err {max_abs:.3e} "
-          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms edge-list {edge} "
-          f"torch.sparse.mm (CSR) {library_ms:.4f} ms bound {bound_ms:.4f} ms "
+          f"kernel {device_ms:.4f} ms device by graph replay, {ms:.4f} ms a call on the "
+          f"stream, {host_ms:.4f} ms of host a call; plain {plain_ms:.4f} ms edge-list {edge} "
+          f"torch.sparse.mm (CSR) {library_ms:.4f} ms bound {f4(bound_ms)} ms "
           f"({by}: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP, 2*nnz*C) "
-          f"share of bound {bound_ms / ms:.4f}{dense_note}")
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, edge_list_ms=edge_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
+          f"share of bound {f4(ratio(bound_ms, device_ms))}{dense_note}")
+    return dict(max_abs_err=max_abs, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                edge_list_ms=edge_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
                 bound_ms_dense_blocks=dense_ms, shape=f"{label} {shape} NB={nb} nnz={nnz}")
 
 
@@ -764,33 +736,72 @@ def phase_bsr_kernel(cfg, graph, split, power_limit: str):
     return [bsr_case(*shape[:5], power_k=shape[5]) for shape in shapes]
 
 
+# The main path's global S = 256 row and the hub row, where the sum of the
+# profiler's kept device events over the calls made once read short of the
+# CUDA events (PERF.md §6). There the profiler's per-launch means must agree
+# with the graph replay's time within TIMER_AGREE.
+TIMER_ROWS = ("global S=256 R=2 ", "hub ")
+TIMER_AGREE = 0.10
+PROFILER_REPS = 20
+
+
+def fmt_profile(prof: dict) -> str:
+    return (f"{prof['events']} device events kept, lag {f4(prof['lag_ms'])} ms, tail "
+            f"{f4(prof['tail_ms'])} ms, mean gap {f4(prof['gap_ms'])} ms; ms a launch: "
+            f"{fmt_device(prof['by_name'])}")
+
+
+def profiled_pos(kw) -> tuple[dict, float]:
+    """``timing.profile_kernels`` of ``pos_power_rows(**kw)`` and the sum of
+    its two kernels' per-launch means (each launches once a call)."""
+    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
+    from s3grl_tpu_torch.utils import timing
+
+    prof = timing.profile_kernels(lambda: pos_power_rows(**kw), PROFILER_REPS)
+    return prof, sum(v for k, v in prof["by_name"].items() if k.startswith("pos_"))
+
+
 def phase_device_times(cfg, graph, split, rows, bsr_rows, power_limit: str) -> None:
-    """Each kernel's device time per call by ``torch.profiler``, on the
-    kernel phases' inputs built again; adds ``device_ms`` (and, for
-    ``bsr_spmm``, ``library_device_ms``) to their rows."""
+    """Each kernel's device time per call by ``torch.profiler``
+    (``timing.profile_kernels``: the mean of each kernel's kept device
+    events), on the kernel phases' inputs built again, beside the graph
+    replay's ``device_ms`` and the kept events' sum over the calls made
+    (which reads short where the session missed events); at TIMER_ROWS the
+    means must agree with ``device_ms`` within TIMER_AGREE. Adds ``profiler_ms`` (and, for ``bsr_spmm``,
+    ``library_device_ms``) to the rows."""
     import torch
 
-    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
     from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm
+    from s3grl_tpu_torch.utils import timing
 
-    print(f"device time phase (torch.profiler): card {power_limit}")
+    print(f"device time phase (torch.profiler, {PROFILER_REPS} calls): card {power_limit}")
     cases, _, _ = kernel_cases(cfg, graph, split)
     for label, kw, _ in cases:
-        dev = device_ms_by_kernel(lambda: pos_power_rows(**kw), reps=5)
         r = rows[label]
-        r["device_ms"] = sum(v for k, v in dev.items() if k.startswith("pos_"))
-        print(f"  pos_power_rows {label}: {fmt_device(dev)}; the two kernels "
-              f"{r['device_ms']:.4f} ms, share of bound {r['bound_ms'] / r['device_ms']:.3f}")
+        prof, r["profiler_ms"] = profiled_pos(kw)
+        agree = r["profiler_ms"] / r["device_ms"] - 1
+        print(f"  pos_power_rows {label}: {fmt_profile(prof)} (of {2 * PROFILER_REPS} "
+              f"launched); the two kernels {r['profiler_ms']:.4f} ms against "
+              f"{r['device_ms']:.4f} ms by graph replay ({agree:+.3%}); the kept events' sum "
+              f"over the calls {prof['kept_sum_ms']:.4f} ms; share of bound "
+              f"{f4(ratio(r['bound_ms'], r['device_ms']))}")
+        if label.startswith(TIMER_ROWS) and (len(prof["launches"]) != 2
+                                             or abs(agree) > TIMER_AGREE):
+            raise AssertionError(
+                f"{label}: the profiler reads {r['profiler_ms']:.4f} ms over "
+                f"{prof['launches']} kept events against the graph replay's "
+                f"{r['device_ms']:.4f} ms (bar {TIMER_AGREE:.0%})")
     del cases
     for (label, src, dst, n, x, _), r in zip(bsr_shapes(cfg, graph, split), bsr_rows):
         adj, _, m_csr = bsr_inputs(src, dst, n)
-        dev = device_ms_by_kernel(lambda: bsr_spmm(adj, x), reps=20)
-        lib_dev = device_ms_by_kernel(lambda: torch.sparse.mm(m_csr, x), reps=20)
-        r["device_ms"] = sum(v for k, v in dev.items() if k.startswith("csr_spmm"))
-        r["library_device_ms"] = sum(lib_dev.values())
-        print(f"  bsr_spmm {label}: kernel {r['device_ms']:.4f} ms (share of bound "
-              f"{r['bound_ms'] / r['device_ms']:.3f}); torch.sparse.mm "
-              f"{r['library_device_ms']:.4f} ms ({fmt_device(lib_dev)})")
+        prof = timing.profile_kernels(lambda: bsr_spmm(adj, x), PROFILER_REPS)
+        lib = timing.profile_kernels(lambda: torch.sparse.mm(m_csr, x), PROFILER_REPS)
+        r["profiler_ms"] = sum(v for k, v in prof["by_name"].items() if k.startswith("csr_spmm"))
+        r["library_device_ms"] = sum(lib["by_name"].values())
+        print(f"  bsr_spmm {label}: {fmt_profile(prof)}; kernel {r['profiler_ms']:.4f} ms "
+              f"against {r['device_ms']:.4f} ms by graph replay (share of bound "
+              f"{f4(ratio(r['bound_ms'], r['device_ms']))}); torch.sparse.mm "
+              f"{r['library_device_ms']:.4f} ms ({fmt_profile(lib)})")
 
 
 def phase_end_to_end(cfg, graph, split):
@@ -1749,10 +1760,10 @@ def shard_bsr_case(cfg, graph) -> dict:
     import torch
 
     from s3grl_tpu_torch.data.features import init_features
-    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm
     from s3grl_tpu_torch.parallel.dist import partition_edges_by_owner
     from s3grl_tpu_torch.sampling.extraction import DeviceGraph
     from s3grl_tpu_torch.operators.sop import host_normalized_edges
+    from s3grl_tpu_torch.utils import timing
 
     g = init_features(graph, cfg.init_features)
     src, dst, w = host_normalized_edges(DeviceGraph.from_graph(g, device="cuda"))
@@ -1764,14 +1775,11 @@ def shard_bsr_case(cfg, graph) -> dict:
     args = (src_p[0][keep], dstl_p[0][keep], n_pad, x)
     row = bsr_case("2-way row shard (rank 0) of the SoP chain", *args, w=w_p[0][keep],
                    rows=rows)
-    adj, _, m_csr = bsr_inputs(*args[:3], w=w_p[0][keep], rows=rows)
-    dev = device_ms_by_kernel(lambda: bsr_spmm(adj, x), reps=20)
-    lib_dev = device_ms_by_kernel(lambda: torch.sparse.mm(m_csr, x), reps=20)
-    row["device_ms"] = sum(v for k, v in dev.items() if k.startswith("csr_spmm"))
-    row["library_device_ms"] = sum(lib_dev.values())
-    print(f"  bsr_spmm row shard: kernel {row['device_ms']:.4f} ms device (share of bound "
-          f"{row['bound_ms'] / row['device_ms']:.3f}); torch.sparse.mm "
-          f"{row['library_device_ms']:.4f} ms ({fmt_device(lib_dev)})")
+    _, _, m_csr = bsr_inputs(*args[:3], w=w_p[0][keep], rows=rows)
+    lib = timing.profile_kernels(lambda: torch.sparse.mm(m_csr, x))
+    row["library_device_ms"] = sum(lib["by_name"].values())
+    print(f"  bsr_spmm row shard: torch.sparse.mm {row['library_device_ms']:.4f} ms device "
+          f"({fmt_profile(lib)})")
     return row
 
 
@@ -1820,6 +1828,71 @@ def phase_multi_device(cfg, graph, split, power_limit: str) -> dict:
     print(f"  2 ranks on one card: equal to one process bit for bit "
           f"({time.perf_counter() - t0:.1f} s with the ranks' start)")
     return dict(launches=launches, world1=one, scaling=row, shard=shard, two=two)
+
+
+# bench_torch.py's last line must carry these keys (bench.py's, plus the card
+# and the graph), and its kernel rows these tolerances (this script's).
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail", "device", "graph"}
+BENCH_DETAIL_KEYS = {"precompute_links_per_sec", "train_links_per_sec",
+                     "reference_scipy_links_per_sec", "test_auc_at_5_epochs", "total_links",
+                     "kernel_efficiency", "blogcatalog_precompute", "arxiv_precompute"}
+BENCH_TOL = {"pos_power_rows": TOL, "bsr_spmm": BSR_TOL}
+# bench_torch.py's rows at the S = 256 and hub-like shapes (bench.py's
+# "pos_pallas" and "pos_pallas_large"), whose three readings are held.
+BENCH_TIMER_ROWS = ("pos_power_rows", "pos_power_rows_large")
+BENCH_SHARE_MAX = 1.05
+BENCH_TIMEOUT_S = 600
+
+
+def phase_bench(power_limit: str) -> dict:
+    """``python3 bench_torch.py`` in a process of its own, as a user runs
+    it; its two JSON lines are printed. The last must carry BENCH_KEYS, a
+    best test AUC within AUC_SLACK of the JAX package's PoS AUC, a PoS path
+    that launched ``pos_power_rows``, kernel rows within their tolerance of
+    the plain versions with a share of the bound at most BENCH_SHARE_MAX,
+    and at BENCH_TIMER_ROWS a profiler reading within TIMER_AGREE of the
+    graph replay's ``device_ms``, with ``call_ms`` beside them. Returns the
+    last line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    print(f"bench: python3 bench_torch.py; card {power_limit}")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.join(here, "bench_torch.py")], cwd=here,
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    for ln in lines:
+        print(f"  {ln}")
+    if res.returncode != 0 or len(lines) != 2:
+        raise AssertionError(f"bench_torch.py exited {res.returncode} with {len(lines)} JSON "
+                             f"line(s):\n{res.stderr[-4000:]}")
+    first, last = (json.loads(ln) for ln in lines)
+    detail = last["detail"]
+    missing = (BENCH_KEYS - set(last)) | (BENCH_DETAIL_KEYS - set(detail))
+    if missing or (first["metric"], first["value"]) != (last["metric"], last["value"]):
+        raise AssertionError(f"bench_torch.py's lines lack {sorted(missing)} or disagree")
+    check_auc("PoS", 100 * detail["test_auc_at_5_epochs"])
+    if not detail["pos_power_rows_launches"] > 0:
+        raise AssertionError("bench_torch.py's timed precompute never launched pos_power_rows")
+    rows = {k: v for k, v in detail["kernel_efficiency"].items()
+            if isinstance(v, dict) and "kernel" in v}
+    if set(rows) != {*BENCH_TIMER_ROWS, "pos_power_rows_local_large",
+                     "pos_power_rows_power_law_table", "bsr_spmm"}:
+        raise AssertionError(f"bench_torch.py's kernel rows: {sorted(rows)}")
+    for tag, r in rows.items():
+        agree = r["profiler_ms"] / r["device_ms"] - 1
+        print(f"  {tag}: max_abs_err {r['max_abs_err']:.3e}, device {r['device_ms']:.4f} ms "
+              f"by graph replay, profiler {r['profiler_ms']:.4f} ms ({agree:+.3%}), "
+              f"{r['call_ms']:.4f} ms a call on the stream, bound {f4(r['bound_ms'])} ms "
+              f"({r['bound_by']}), share {f4(r['share'])}")
+        if not r["within_tol"] or r["tol"] != BENCH_TOL[r["kernel"]]:
+            raise AssertionError(f"bench_torch.py's {tag} row is not within {r['tol']} of its "
+                                 f"plain version, or not at {BENCH_TOL[r['kernel']]}")
+        if r["share"] is not None and r["share"] > BENCH_SHARE_MAX:
+            raise AssertionError(f"bench_torch.py's {tag} row reads a share of {r['share']}")
+        if tag in BENCH_TIMER_ROWS and abs(agree) > TIMER_AGREE:
+            raise AssertionError(f"bench_torch.py's {tag} row: the profiler reads "
+                                 f"{r['profiler_ms']} ms against {r['device_ms']} ms")
+    print(f"  bench: {time.perf_counter() - t0:.1f} s with the process's start")
+    return last
 
 
 def phase_idle(cfg, graph, split, power_limit: str) -> None:
@@ -1892,6 +1965,7 @@ def main(argv=None) -> int:
     pairwise = timed("pairwise", phase_pairwise, cfg, graph, split)
     valedges = timed("valedges", phase_valedges, cfg, graph, split)
     multi = timed("multi-device", phase_multi_device, cfg, graph, split, power_limit)
+    timed("bench", phase_bench, power_limit)
     timed("device times", phase_device_times, cfg, graph, split, rows, bsr_rows, power_limit)
     timed("idle", phase_idle, cfg, graph, split, power_limit)
     bsr_main, bsr_batch = bsr_rows[0], bsr_rows[1]
@@ -1926,19 +2000,22 @@ def main(argv=None) -> int:
         "launches": launches["PoS"]["pos_power_rows"], "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None, "shape": label,
-        "device_ms": r["device_ms"], "selector_phase_ms": r["phase1_ms"],
+        "device_ms": r["device_ms"], "profiler_ms": r["profiler_ms"],
+        "selector_phase_ms": r["phase1_ms"],
         "resolved_entries": r["resolved_entries"], "member_rows": r["member_rows"],
         "padded_bound_ms": r["padded_bound_ms"],
         "launches_by_path": by_path["pos_power_rows"],
         "local_slot": [{
             "shape": k, "max_abs_err": v["max_abs_err"], "ms": v["ms"],
-            "device_ms": v["device_ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "device_ms": v["device_ms"], "profiler_ms": v["profiler_ms"],
+            "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
             "bound_by": v["bound_by"], "member_rows": v["member_rows"],
             "padded_bound_ms": v["padded_bound_ms"],
             "launches": init_rows[k.split()[0]]["local_launches"]} for k, v in local.items()],
         "hub": [{
             "shape": k, "max_abs_err": v["max_abs_err"], "ms": v["ms"],
-            "device_ms": v["device_ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "device_ms": v["device_ms"], "profiler_ms": v["profiler_ms"],
+            "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
             "bound_by": v["bound_by"], "member_rows": v["member_rows"],
             "resolved_entries": v["resolved_entries"], "padded_bound_ms": v["padded_bound_ms"],
             "degree_bound_ms": v["degree_bound_ms"],
@@ -1957,9 +2034,11 @@ def main(argv=None) -> int:
         "launches_by_path": by_path["bsr_spmm"],
         "edge_list_ms": bsr_main["edge_list_ms"],
         "bound_ms_dense_blocks": bsr_main["bound_ms_dense_blocks"],
-        "device_ms": bsr_main["device_ms"], "library_device_ms": bsr_main["library_device_ms"],
+        "device_ms": bsr_main["device_ms"], "profiler_ms": bsr_main["profiler_ms"],
+        "library_device_ms": bsr_main["library_device_ms"],
         "sop_batch": {k: bsr_batch[k] for k in (
-            "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "shape", "max_abs_err", "ms", "device_ms", "profiler_ms", "plain_ms", "bound_ms",
+            "bound_by",
             "library_ms", "library_device_ms", "edge_list_ms")},
         "row_shard": {k: multi["shard"][k] for k in (
             "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",

@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from s3grl_tpu_torch.ops import _build
+from s3grl_tpu_torch.utils.device import Work
 
 # The most dynamic shared memory one block may use on sm_90 (227 KB).
 _MAX_SMEM = 232448
@@ -283,3 +284,60 @@ def pos_power_rows(
 
 pos_power_rows.launches = 0
 pos_power_rows.local_launches = 0  # the launches in local-slot mode (row_ids None)
+
+
+def resolved_entries(nbr: torch.Tensor, w: torch.Tensor,
+                     row_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B] int64: each subgraph's neighbor entries that name one of its slots
+    and carry a nonzero weight (the entries the K steps walk)."""
+    B, S, _ = nbr.shape
+    _, found = _resolve_slots(nbr, row_ids, S)
+    return (found & (w.reshape(B, -1) != 0)).sum(dim=1)
+
+
+def work(
+    sel_idx: torch.Tensor,
+    nbr: torch.Tensor,
+    w: torch.Tensor,
+    subg_x: torch.Tensor,
+    *,
+    sign_k: int,
+    row_ids: Optional[torch.Tensor] = None,
+    node_mask: Optional[torch.Tensor] = None,  # [B, S] bool, the member slots
+    count: str = "members",
+) -> Work:
+    """The bytes and FLOP one :func:`pos_power_rows` call must do for this
+    data, whatever implements it.
+
+    Bytes: the member slots' rows of the table and its weights, their rows
+    of X and their row ids (global mode), the selected row ids, each read
+    once, and the output written once. FLOP: one multiply-add per resolved
+    entry (:func:`resolved_entries`) and selected row per step, and one per
+    (k >= 1, selected row, member slot, feature) for the output; a padded
+    slot adds nothing to the output. ``node_mask`` None takes every slot as
+    a member. ``count`` "padded" reads every slot's row of the table and of
+    X; "live" reads of each member row only its nonzero-weight entries, not
+    the table's padded width.
+
+    This is not bench.py's TPU count, which pads F to 128 lanes and counts
+    a dense [S, S] densify and power chain (bench.py:217-229), nor the
+    Pallas kernel's ``pl.CostEstimate`` (s3grl_tpu/ops/pos_pallas.py:296):
+    both count what the TPU kernel does, not what the data needs.
+    """
+    B, S, D = nbr.shape
+    F, R, K = subg_x.shape[2], sel_idx.shape[1], sign_k
+    entries = int(resolved_entries(nbr, w, row_ids).sum())
+    if node_mask is None:
+        node_mask = torch.ones((B, S), dtype=torch.bool, device=nbr.device)
+    rows = int(node_mask.sum())
+    if count == "members":
+        table = rows * D
+    elif count == "padded":
+        rows, table = B * S, B * S * D
+    elif count == "live":
+        table = int(((w != 0) & node_mask[:, :, None]).sum())
+    else:
+        raise ValueError(f"count must be members, padded or live, got {count!r}")
+    ids = rows if row_ids is not None else 0
+    n_bytes = 4 * (2 * table + rows * F + B * (K + 1) * R * F + B * R + ids)
+    return Work(n_bytes=float(n_bytes), flops=2.0 * (K * R * entries + K * R * rows * F))

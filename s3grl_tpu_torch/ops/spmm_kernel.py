@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from s3grl_tpu_torch.ops import _build
+from s3grl_tpu_torch.utils.device import Work
 
 BLOCK_SIZE = 128
 BUDGET_BYTES = 1 << 30  # the most the dense blocks may take
@@ -353,6 +354,22 @@ def bsr_spmm(adj: BlockedAdjacency | CsrMatrix, x: torch.Tensor) -> torch.Tensor
 
 
 bsr_spmm.launches = 0
+
+
+def work(adj: BlockedAdjacency | CsrMatrix, x: torch.Tensor) -> Work:
+    """The bytes and FLOP one :func:`bsr_spmm` call must do for this data,
+    whatever implements it: M's nonzeros (value and column id) and its CSR
+    row pointers, X read once and Y written once; one multiply-add per
+    nonzero and column of X.
+
+    This is not bench.py's TPU count, which streams every 128×128 block
+    whole (2·NB·128²·C FLOP; bench.py:293-298), nor the Pallas kernel's
+    ``pl.CostEstimate`` (s3grl_tpu/ops/spmm_pallas.py:245): both count the
+    dense-block layout's work, not what the data needs.
+    """
+    nnz, rows, n, c = int(adj.csr_vals.numel()), adj.num_nodes, adj.num_cols, int(x.shape[1])
+    return Work(n_bytes=float(8 * nnz + 4 * (rows + 1) + 4 * (n + rows) * c),
+                flops=2.0 * nnz * c)
 
 
 def power_chain(adj: BlockedAdjacency, x: torch.Tensor, sign_k: int) -> torch.Tensor:

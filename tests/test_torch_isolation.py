@@ -31,6 +31,7 @@ def _port_modules():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every port module, and bench_torch.py at the repository's root."""
     mods = _port_modules()
     assert "s3grl_tpu_torch.runner" in mods and "s3grl_tpu_torch.ops.pos_kernel" in mods
     assert "s3grl_tpu_torch.operators.sop" in mods and "s3grl_tpu_torch.ops.spmm_kernel" in mods
@@ -44,7 +45,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert f"s3grl_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"for m in {mods + ['bench_torch']!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 's3grl_tpu' or m.startswith('s3grl_tpu.'))\n"
         "print(bad)\n"
