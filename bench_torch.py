@@ -341,12 +341,14 @@ def kernel_efficiency(dev) -> dict:
 def large_graph_precompute_rate(label: str, params: dict, n_links: int, dev) -> dict:
     """bench.py:311-367 on a synthetic graph of the dataset's shape
     (:data:`SCALES`): PoS (the host BFS route where L·E reaches its
-    threshold) and SoP on ``n_links`` train links, each warm then timed."""
+    threshold, the local-table route in the buckets where ``auto`` takes
+    it) and SoP on ``n_links`` train links, each warm then timed."""
     from s3grl_tpu_torch.data.features import init_features
     from s3grl_tpu_torch.data.graph import Graph
     from s3grl_tpu_torch.data.split import do_edge_split
     from s3grl_tpu_torch.operators.pos import host_extract_route, precompute_pos
     from s3grl_tpu_torch.operators.sop import precompute_sop
+    from s3grl_tpu_torch.ops.local_table import local_table
     from s3grl_tpu_torch.sampling.extraction import DeviceGraph
     from s3grl_tpu_torch.utils.seeding import seed_everything
     from torch_port_helpers import blogcatalog_like_edges
@@ -362,10 +364,12 @@ def large_graph_precompute_rate(label: str, params: dict, n_links: int, dev) -> 
     kw = dict(num_hops=2, sign_k=3, batch_size=32, seed=1, device=dev)
     precompute_pos(dg, links, y, **kw)
     sync(dev)
+    tables = local_table.launches
     t0 = time.perf_counter()
     precompute_pos(dg, links, y, **kw)
     sync(dev)
     pos_rate = len(links) / (time.perf_counter() - t0)
+    tables = local_table.launches - tables
 
     warm = min(512, len(links))
     precompute_sop(dg, links[:warm], y[:warm], sign_k=3, device=dev)
@@ -383,6 +387,7 @@ def large_graph_precompute_rate(label: str, params: dict, n_links: int, dev) -> 
         "n_nodes": int(graph.num_nodes),
         "n_edges": int(graph.edge_index.shape[1]),
         "pos_route": "host BFS" if host else "device BFS",
+        "local_table_launches": tables,
         "graph": f"{label}-shaped Chung-Lu: blogcatalog_like_edges(1, {params})",
     }
 

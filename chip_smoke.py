@@ -22,7 +22,12 @@ non-zero without the final line:
    the resolved neighbor entries; ``bsr_spmm`` on the SoP chain, on SoP's
    first batch of one-hot endpoint columns (C = 2B = 8,192) and on a
    Cora-shaped random graph, with the edge-list route's time and one
-   ``torch.sparse.mm`` as a yardstick;
+   ``torch.sparse.mm`` as a yardstick; ``pos_power_rows`` on the hub
+   batch's global table and on the local tables the card builds for it,
+   whose outputs must be equal bit for bit; then ``local_table`` against its
+   plain version, bit for bit, on the main path's S = 256 batch and the
+   hub batch, with its device time, the two-pass alternative's and its
+   bound (``phase_local_table``);
 4. end to end: ``run_sgrl_learning`` on a synthetic USAir-shaped graph
    with the bench.py config (USAir, sign_k 3, 2 hops, degree features,
    hidden 256, batch 32, lr 1e-4), 5 epochs, seed 1, once per sign type
@@ -63,7 +68,11 @@ non-zero without the final line:
     too at 50,000 nodes); then 256 links of a BlogCatalog-sized power-law
     graph (hub degree 3,377: a global table 3,392 wide) by both routes,
     bit for bit; phase 3 also holds ``pos_power_rows`` on that graph's
-    first S = 1,024 batch against its plain version;
+    first S = 1,024 batch against its plain version; then the local-table
+    route (``S3GRL_TPU_LOCAL_TAB=1``, its tables built on the card) against
+    the global routes, bit for bit, with each route's prep timed twice, on
+    the hub graph, a narrow-local graph (50,004 nodes, a global table 3,008
+    wide, 1 hop) and an arxiv-shaped graph (a global table 512 wide);
 12. sampled paths (``SAMPLED_PATHS``): the bench config with
     ``ratio_per_hop`` 0.5 and SEAL with ``max_nodes_per_hop`` 10, each
     one's prep, train rate, peak memory and best test AUC against the JAX
@@ -506,9 +515,11 @@ def phase_kernels(cfg, graph, split, power_limit: str):
     cases, D, F = kernel_cases(cfg, graph, split)
     print(f"kernel phase: D={D} F={F + 1} (features + indicator) K={cfg.sign_k}; "
           f"card {power_limit}")
-    rows = {}
+    rows, hub_out = {}, {}
     for label, kw, node_mask in cases:
         got = pos_power_rows(**kw)
+        if label.startswith("hub "):
+            hub_out[label.split()[1]] = got
         want = pos_power_rows_reference(**kw)
         torch.cuda.synchronize()
         diff = (got - want).abs()
@@ -560,6 +571,98 @@ def phase_kernels(cfg, graph, split, power_limit: str):
               f"{f4(ratio(bound_ms, device_ms))}; resolved entries {int(nnz.sum())} "
               f"(per subgraph mean {nnz.mean():.1f}, max {int(nnz.max())}; "
               f"{int((nnz > cap).sum())} of {B} over the {cap}-entry shared-memory list)")
+    if not torch.equal(hub_out["local"], hub_out["global"]):
+        raise AssertionError("pos_power_rows on the hub batch's local tables differs from "
+                             "the global-table call")
+    print("  hub local and hub global outputs equal bit for bit")
+    return rows
+
+
+def local_table_batches(cfg, graph, split) -> dict:
+    """{label: (DeviceGraph, links [B, 2], nodes [B, S] int32, node mask)}:
+    the main path's S = 256 batch as :func:`kernel_cases` builds it, and
+    :func:`hub_batch`."""
+    import torch
+
+    from s3grl_tpu_torch.data.features import init_features
+    from s3grl_tpu_torch.operators.pos import batch_cap
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph, extract_node_sets
+
+    dg = DeviceGraph.from_graph(init_features(graph, cfg.init_features), device="cuda")
+    S = 256
+    B = batch_cap(S, int(dg.x.shape[1]), int(dg.nbr.shape[1]), 0, cfg.extract_batch_size)
+    links_all = np.concatenate([split.train_pos, split.train_neg]).astype(np.int32)
+    lb = torch.as_tensor(np.tile(links_all, (-(-B // len(links_all)), 1))[:B], device="cuda")
+    nodes, mask, _, _ = extract_node_sets(dg, lb, num_hops=cfg.num_hops, max_nodes=S)
+    hub = hub_batch()
+    return {f"main path S={S} B={B}": (dg, lb, nodes, mask),
+            f"hub S={LARGE_S} B={len(hub[1])}": hub}
+
+
+def phase_local_table(cfg, graph, split, power_limit: str) -> dict:
+    """``local_table`` against ``local_table_reference`` on the card, equal
+    bit for bit (integer output), on :func:`local_table_batches`, at the
+    route's width (``operators/pos.local_table_width``); its device time by
+    graph replay of its one launch, its time a call on the stream
+    (``call_ms``), the two-pass alternative's device time (a count launch,
+    the batch's largest degree, a write launch at that degree rounded up;
+    the host's read between them cannot be captured and is left out), the
+    plain version's time and the bound of ``local_table.work`` (the member
+    rows' live entries; over whole rows of the global table beside it)."""
+    import torch
+
+    from s3grl_tpu_torch.operators.pos import local_table_width
+    from s3grl_tpu_torch.ops import local_table as lt
+    from s3grl_tpu_torch.utils import timing
+    from s3grl_tpu_torch.utils.device import bound_ms
+
+    rates = card_rates()
+    print(f"local_table phase: card {power_limit}")
+    rows = {}
+    for label, (dg, links, nodes, mask) in local_table_batches(cfg, graph, split).items():
+        nodes = nodes.to(torch.int32).contiguous()
+        l32 = links.to(torch.int32).contiguous()
+        B, S = nodes.shape
+        D, W = int(dg.nbr.shape[1]), local_table_width(dg, int(nodes.shape[1]))
+        args = (dg.nbr, dg.degrees(), nodes, mask, l32)
+        got = lt.local_table(*args, W)
+        want = lt.local_table_reference(*args, W)
+        torch.cuda.synchronize()
+        for a, b, name in zip(got, want, ("loc", "w", "ldeg", "mdeg")):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"local_table's {name} differs from its plain version "
+                                     f"at {label}")
+        mdeg = got[3].cpu().numpy()
+        W2 = lt.table_width(int(mdeg.max()))
+        ldeg = torch.empty((B, S), dtype=torch.int32, device="cuda")
+        loc2 = torch.empty((B, S, W2), dtype=torch.int32, device="cuda")
+        w2 = torch.empty((B, S, W2), dtype=torch.float32, device="cuda")
+
+        def two_pass():
+            lt.launch(*args, 0, ldeg)
+            ldeg.amax(dim=1)
+            lt.launch(*args, W2, ldeg, loc2, w2)
+
+        device_ms = timing.graph_ms(lambda: lt.local_table(*args, W))
+        two_pass_ms = timing.graph_ms(two_pass)
+        ms = timing.call_ms(lambda: lt.local_table(*args, W))
+        plain_ms = timing.call_ms(lambda: lt.local_table_reference(*args, W), reps=3)
+        live = lt.work(dg.nbr, dg.degrees(), nodes, mask, W, count="live")
+        padded = lt.work(dg.nbr, dg.degrees(), nodes, mask, W, count="padded")
+        b_ms, by = bound_ms(live, rates)
+        p_ms = bound_ms(padded, rates)[0]
+        rows[label] = dict(max_abs_err=0.0, ms=ms, device_ms=device_ms,
+                           two_pass_device_ms=two_pass_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=by, padded_bound_ms=p_ms, width=W, two_pass_width=W2,
+                           n_bytes=live.n_bytes, mdeg_max=int(mdeg.max()),
+                           mdeg_mean=float(mdeg.mean()))
+        print(f"  {label} D_tab={D}: equal bit for bit; width {W} (mdeg mean "
+              f"{mdeg.mean():.1f}, max {int(mdeg.max())}); kernel {device_ms:.4f} ms device "
+              f"by graph replay, {ms:.4f} ms a call on the stream; the two-pass alternative "
+              f"(count, write at width {W2}) {two_pass_ms:.4f} ms device; plain "
+              f"{plain_ms:.4f} ms; bound {f4(b_ms)} ms ({by}: {live.n_bytes / 1e6:.1f} MB; "
+              f"{f4(p_ms)} ms reading whole global rows) share of bound "
+              f"{f4(ratio(b_ms, device_ms))}")
     return rows
 
 
@@ -840,11 +943,9 @@ def run_path(cfg, graph, split, n_links, sign_type, kernels):
 
     import torch
 
-    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
-    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm
     from s3grl_tpu_torch.runner import run_sgrl_learning
 
-    wrappers = {"pos_power_rows": pos_power_rows, "bsr_spmm": bsr_spmm}
+    wrappers = kernel_wrappers()
     cfg = dataclasses.replace(cfg, sign_type=sign_type,
                               pool_operatorwise=sign_type != "PoS")
     torch.cuda.reset_peak_memory_stats()
@@ -863,6 +964,8 @@ def run_path(cfg, graph, split, n_links, sign_type, kernels):
     for name in kernels:
         if launches[name] == 0:
             raise AssertionError(f"the {sign_type} path never launched {name}")
+    if launches["local_table"]:
+        raise AssertionError(f"the {sign_type} path took the local-table route")
     if "bsr_spmm" in kernels:
         print(f"  bsr_spmm launches {launches['bsr_spmm']} (K = {cfg.sign_k} for each "
               f"split's chain and K for each batch of links of a split)")
@@ -914,11 +1017,9 @@ def phase_label_paths(cfg, graph, split) -> dict:
 
     import torch
 
-    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
-    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm
     from s3grl_tpu_torch.runner import run_sgrl_learning
 
-    wrappers = {"pos_power_rows": pos_power_rows, "bsr_spmm": bsr_spmm}
+    wrappers = kernel_wrappers()
     rows = {}
     for name, fields in LABEL_PATHS.items():
         c = dataclasses.replace(cfg, **fields)
@@ -962,10 +1063,9 @@ def phase_init_paths(cfg, graph, split) -> dict:
     import torch
 
     from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
-    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm
     from s3grl_tpu_torch.runner import run_sgrl_learning
 
-    wrappers = {"pos_power_rows": pos_power_rows, "bsr_spmm": bsr_spmm}
+    wrappers = kernel_wrappers()
     rows = {}
     for name, fields in INIT_PATHS.items():
         c = dataclasses.replace(cfg, **fields)
@@ -1017,22 +1117,26 @@ def phase_init_paths(cfg, graph, split) -> dict:
     return rows
 
 
-WRAPPERS = ("pos_power_rows", "bsr_spmm")
+WRAPPERS = ("pos_power_rows", "bsr_spmm", "local_table")
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper by name (WRAPPERS)."""
+    from s3grl_tpu_torch.ops.local_table import local_table
+    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
+    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm
+
+    return {"pos_power_rows": pos_power_rows, "bsr_spmm": bsr_spmm, "local_table": local_table}
 
 
 def kernel_counts() -> dict:
     """Each kernel wrapper's launch count."""
-    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
-    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm
-
-    return {"pos_power_rows": pos_power_rows.launches, "bsr_spmm": bsr_spmm.launches}
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def zero_counts() -> None:
-    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
-    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm
-
-    pos_power_rows.launches = bsr_spmm.launches = 0
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
 
 
 def phase_repeat(cfg, graph, split) -> dict:
@@ -1306,6 +1410,13 @@ LARGE_FEATURES = 128
 # precompute_pos, the first batch of which the kernel cases take.
 HUB_LINKS = 256
 HUB_FEATURES = 128
+# The narrow-local graph: LARGE_PREP_NODES nodes of average degree 20 and
+# NARROW_HUBS hubs, NARROW_LINKS random links, 1 hop: subgraphs of ~40 nodes
+# whose local degrees stay small beside a global table 3,008 wide.
+NARROW_HUBS = 4
+NARROW_HUB_DEGREE = 3_000
+NARROW_LINKS = 2_048
+NARROW_HOPS = 1
 
 
 def sync_s(t0: float) -> float:
@@ -1353,35 +1464,114 @@ def device_node_sets(dg, links):
     return sizes, nodes, mask, sizing_s, sync_s(t0)
 
 
-ROUTES = {"auto": {}, "host": dict(S3GRL_TPU_HOST_EXTRACT="1"),
-          "device": dict(S3GRL_TPU_HOST_EXTRACT="0")}
+# precompute_pos' routes: the auto choice; the host or the device BFS on the
+# global table; the host BFS's node sets on the local tables the card builds.
+ROUTES = {"auto": {},
+          "host": dict(S3GRL_TPU_HOST_EXTRACT="1", S3GRL_TPU_LOCAL_TAB="0"),
+          "device": dict(S3GRL_TPU_HOST_EXTRACT="0", S3GRL_TPU_LOCAL_TAB="0"),
+          "local": dict(S3GRL_TPU_HOST_EXTRACT="1", S3GRL_TPU_LOCAL_TAB="1")}
 
 
-def prep_both_ways(dg, links, label: str, routes=("host", "device")) -> dict:
-    """``precompute_pos`` (2 hops, K = 3) of ``links`` by each of ``routes``
-    (ROUTES: the auto choice, or the host or device BFS forced), which must
-    give the same datasets bit for bit: {route: (prep s, launches)}."""
+def prep_both_ways(dg, links, label: str, routes=("host", "device"), hops: int = LARGE_HOPS,
+                   twice: bool = False) -> dict:
+    """``precompute_pos`` (``hops`` hops, K = 3) of ``links`` by each of
+    ``routes`` (ROUTES), which must give the same datasets bit for bit, each
+    route's counts set to 0 just before it and read just after: {route:
+    (prep s, launches)}. The local route must launch ``local_table`` and the
+    others must not. With ``twice``, the graph's host CSR and degrees are
+    built first, and the routes run once untimed, then timed in order and
+    again in reverse order (prep s is then the pair)."""
     import torch
 
     from s3grl_tpu_torch.operators.pos import precompute_pos
 
     y = np.ones(len(links), np.float32)
     out, rows = {}, {}
-    for route in routes:
+
+    def run(route):
         zero_counts()
         t0 = time.perf_counter()
         with env(**ROUTES[route]):
-            out[route] = precompute_pos(dg, links, y, num_hops=LARGE_HOPS, sign_k=3, device="cuda")
-        rows[route] = (sync_s(t0), kernel_counts())
+            out[route] = precompute_pos(dg, links, y, num_hops=hops, sign_k=3, device="cuda")
+        return sync_s(t0), kernel_counts()
+
+    if twice:
+        dg.host_csr()
+        dg.degrees()
+        for route in routes:
+            run(route)
+        times = {route: [] for route in routes}
+        for route in (*routes, *routes[::-1]):
+            t, counts = run(route)
+            times[route].append(t)
+            rows[route] = (tuple(times[route]), counts)
+    else:
+        rows = {route: run(route) for route in routes}
     first = out[routes[0]]
     for route in routes[1:]:
         if not (torch.equal(out[route].xs, first.xs)
                 and torch.equal(out[route].row_mask, first.row_mask)):
             raise AssertionError(f"{label}: the {routes[0]} and {route} routes' datasets differ")
+    for route, (_, counts) in rows.items():
+        took = counts["local_table"] > 0
+        if route in ("host", "device", "local") and took != (route == "local"):
+            raise AssertionError(f"{label}: the {route} route launched local_table "
+                                 f"{counts['local_table']} times")
+        if route == "local" and counts["pos_power_rows"] == 0:
+            raise AssertionError(f"{label}: the local route never launched pos_power_rows")
+
+    def fmt(t):
+        return " / ".join(f"{x:.4f}" for x in t) if isinstance(t, tuple) else f"{t:.4f}"
+
     print(f"  precompute_pos {label}: " + ", ".join(
-        f"{r} prep {t:.4f} s (pos_power_rows launches {c['pos_power_rows']})"
-        for r, (t, c) in rows.items()) + "; datasets equal bit for bit")
+        f"{r} prep {fmt(t)} s (launches pos_power_rows {c['pos_power_rows']}, local_table "
+        f"{c['local_table']})" for r, (t, c) in rows.items()) + "; datasets equal bit for bit")
     return rows
+
+
+def local_widths(dg, links, hops: int) -> dict:
+    """{bucket: (batches, links, the tables' width, each batch's largest
+    local degree)} of the local route's plan for ``links``, each batch's
+    table built on the card from the host BFS's node sets."""
+    import torch
+
+    from s3grl_tpu_torch import native
+    from s3grl_tpu_torch.operators.pos import local_table_width, pos_plan
+    from s3grl_tpu_torch.ops.local_table import local_table
+
+    with env(**ROUTES["local"]):
+        plan = pos_plan(dg, links, num_hops=hops, sign_k=3)
+    out = {}
+    for bucket, idx in plan.batches:
+        nd, _ = native.khop_nodes(*dg.host_csr(), links[idx], hops, bucket)
+        width = local_table_width(dg, bucket)
+        mdeg = local_table(dg.nbr, dg.degrees(),
+                           torch.as_tensor(np.where(nd >= 0, nd, 0), device="cuda"),
+                           torch.as_tensor(nd >= 0, device="cuda"),
+                           torch.as_tensor(links[idx], device="cuda"), width)[3]
+        n_b, n_l, _, degs = out.get(bucket, (0, 0, width, []))
+        out[bucket] = (n_b + 1, n_l + len(idx), width, degs + [int(mdeg.max())])
+    return out
+
+
+def local_route_rows(dg, links, label: str, routes, hops: int = LARGE_HOPS) -> dict:
+    """The local route against the global routes on one graph
+    (:func:`prep_both_ways` with ``twice``), with the plan's buckets, each
+    bucket's S over the global table's width D_tab, and the local tables'
+    widths: the readings the ``auto`` threshold stands on."""
+    D = int(dg.nbr.shape[1])
+    widths = local_widths(dg, links, hops)
+    print(f"  {label}: D_tab {D}, {len(links)} links, {hops} hop(s); buckets (batches, "
+          f"links, S/D_tab, table width, batches' largest local degree): " + "; ".join(
+              f"{b}: ({nb}, {nl}, {b / D:.3f}, {w}, {min(ds)}-{max(ds)})"
+              for b, (nb, nl, w, ds) in sorted(widths.items())))
+    prep = prep_both_ways(dg, links, label, routes, hops=hops, twice=True)
+    return dict(d_tab=D, links=len(links), hops=hops,
+                buckets={str(b): dict(batches=nb, links=nl, s_over_d=b / D, width=w,
+                                      max_local_degree=ds)
+                         for b, (nb, nl, w, ds) in widths.items()},
+                prep_s={r: list(t) for r, (t, _) in prep.items()},
+                launches={r: c for r, (_, c) in prep.items()})
 
 
 def phase_large_graphs(cfg, graph, split, power_limit: str) -> dict:
@@ -1398,7 +1588,7 @@ def phase_large_graphs(cfg, graph, split, power_limit: str) -> dict:
 
     from s3grl_tpu_torch import native
     from s3grl_tpu_torch.data.features import init_features
-    from s3grl_tpu_torch.operators.pos import HOST_EXTRACT_MIN_LE
+    from s3grl_tpu_torch.operators.pos import HOST_EXTRACT_MIN_LE, LOCAL_TAB_MAX_S_OVER_D
     from s3grl_tpu_torch.sampling.extraction import DeviceGraph
 
     print(f"large graphs: random graphs of average degree 20, {LARGE_LINKS} links, "
@@ -1463,11 +1653,26 @@ def phase_large_graphs(cfg, graph, split, power_limit: str) -> dict:
               f"{[f'{x:.1e}' for x in measured]}; the default threshold is "
               f"{HOST_EXTRACT_MIN_LE:.0e}")
 
-    g, dg, links = hub_graph()
-    prep = prep_both_ways(dg, links, f"hub graph (N={g.num_nodes}, "
-                          f"D={int(dg.nbr.shape[1])}, {len(links)} links)")
-    launches["hub global"] = prep["host"][1]
-    return dict(crossover=rows, launches=launches)
+    # The local-table route against the global routes: the hub graph, the
+    # narrow-local graph and the arxiv-shaped graph.
+    local = {}
+    for name, (g, dg, links), hops, routes in (
+            ("hub", hub_graph(), LARGE_HOPS, ("host", "device", "local")),
+            ("narrow-local", narrow_graph(), NARROW_HOPS, ("host", "device", "local")),
+            ("arxiv-shaped", arxiv_graph(), LARGE_HOPS, ("host", "local"))):
+        local[name] = local_route_rows(dg, links, f"{name} graph (N={g.num_nodes})", routes,
+                                       hops=hops)
+        launches[f"{name} local"] = local[name]["launches"]["local"]
+        launches[f"{name} global"] = local[name]["launches"]["host"]
+        del dg, g
+        torch.cuda.empty_cache()
+    for name, r in local.items():
+        t_l, t_g = min(r["prep_s"]["local"]), min(r["prep_s"]["host"])
+        print(f"  local-table route, {name}: prep {t_l:.4f} s against the global host "
+              f"route's {t_g:.4f} s (best of two), {t_g / t_l:.3f}x; buckets' S/D_tab "
+              f"{sorted(round(b['s_over_d'], 3) for b in r['buckets'].values())}; auto "
+              f"threshold S/D_tab <= {LOCAL_TAB_MAX_S_OVER_D}")
+    return dict(crossover=rows, launches=launches, local_route=local)
 
 
 def hub_graph():
@@ -1486,24 +1691,63 @@ def hub_graph():
     return g, DeviceGraph.from_graph(g, device="cuda"), links
 
 
-def hub_kernel_cases():
-    """``pos_power_rows`` on the first batch that ``precompute_pos``' host
-    route runs in the hub graph's S = 1,024 bucket: its links in the order of
-    the route's clamped sizes, batch_cap's B of them, with global ids on the
-    global table, as (label, kwargs, node mask)."""
+def narrow_graph():
+    """(Graph, DeviceGraph on the card, NARROW_LINKS random links) of the
+    narrow-local graph: LARGE_PREP_NODES nodes of average degree 20
+    (:func:`large_graph`'s) and NARROW_HUBS hubs of degree NARROW_HUB_DEGREE
+    each (a global table 3,008 wide), LARGE_FEATURES normal features."""
+    from s3grl_tpu_torch.data.graph import Graph, to_undirected
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from torch_port_helpers import random_edges
+
+    n = LARGE_PREP_NODES
+    rng = np.random.default_rng(n + 4)
+    ei = random_edges(rng, n=n, e=10 * n)
+    hubs = [np.stack([np.full(NARROW_HUB_DEGREE, n + h),
+                      rng.choice(n, NARROW_HUB_DEGREE, replace=False)])
+            for h in range(NARROW_HUBS)]
+    ei = to_undirected(np.concatenate([ei, *hubs], axis=1).astype(np.int32))
+    n_all = n + NARROW_HUBS
+    g = Graph(num_nodes=n_all, edge_index=ei,
+              x=rng.normal(size=(n_all, LARGE_FEATURES)).astype(np.float32))
+    links = rng.integers(0, n, (NARROW_LINKS, 2)).astype(np.int32)
+    return g, DeviceGraph.from_graph(g, device="cuda"), links
+
+
+def arxiv_graph():
+    """(Graph, DeviceGraph on the card, HUB_LINKS observed links) of
+    ``bench_torch.py``'s arxiv-shaped Chung-Lu graph (18,772 nodes, 198,110
+    edges, max degree 505: a global table 512 wide) with HUB_FEATURES normal
+    features."""
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from torch_port_helpers import blogcatalog_like_edges
+
+    ei = blogcatalog_like_edges(SEED, n=18_772, n_undirected=198_110, exponent=0.375)
+    n = int(ei.max()) + 1
+    rng = np.random.default_rng(SEED)
+    g = Graph(num_nodes=n, edge_index=ei,
+              x=rng.normal(size=(n, HUB_FEATURES)).astype(np.float32))
+    links = ei[:, rng.choice(ei.shape[1], HUB_LINKS, replace=False)].T.astype(np.int32)
+    return g, DeviceGraph.from_graph(g, device="cuda"), links
+
+
+def hub_batch():
+    """The first batch that ``precompute_pos``' host route runs on the global
+    table in the hub graph's S = 1,024 bucket: its links in the order of the
+    route's clamped sizes, batch_cap's B of them at the global table's width,
+    as (DeviceGraph, links [B, 2], nodes [B, S], node mask [B, S]) on the
+    card."""
     import inspect
 
     import torch
 
     from s3grl_tpu_torch import native
-    from s3grl_tpu_torch.operators.pos import (
-        _size_buckets, batch_cap, global_kernel_inputs, precompute_pos,
-    )
+    from s3grl_tpu_torch.operators.pos import _size_buckets, batch_cap, precompute_pos
     from s3grl_tpu_torch.sampling.extraction import pick_bucket
 
     _, dg, links = hub_graph()
-    D = int(dg.nbr.shape[1])
-    B = batch_cap(LARGE_S, HUB_FEATURES, D, 0, 256)
+    B = batch_cap(LARGE_S, HUB_FEATURES, int(dg.nbr.shape[1]), 0, 256)
     buckets = _size_buckets(inspect.signature(precompute_pos).parameters["buckets"].default,
                             LARGE_S)
     nd, sizes = native.khop_nodes(*dg.host_csr(), links, LARGE_HOPS, LARGE_S)
@@ -1513,10 +1757,23 @@ def hub_kernel_cases():
     order = order[in_top][:B]
     nodes = torch.as_tensor(np.where(nd[order] >= 0, nd[order], 0), device="cuda")
     mask = torch.as_tensor(nd[order] >= 0, device="cuda")
-    sel, nbr, w, x, row_ids, _ = global_kernel_inputs(
-        dg, torch.as_tensor(links[order], device="cuda"), nodes, mask)
-    return [(f"hub global S={LARGE_S} D={D} R=2 B={len(order)}",
-             dict(sel_idx=sel, nbr=nbr, w=w, subg_x=x, sign_k=3, row_ids=row_ids), mask)]
+    return dg, torch.as_tensor(links[order], device="cuda"), nodes, mask
+
+
+def hub_kernel_cases():
+    """``pos_power_rows`` on :func:`hub_batch`, with global ids on the
+    global table and on the local tables the card builds for it
+    (``local_table_kernel_inputs``), as (label, kwargs, node mask)."""
+    from s3grl_tpu_torch.operators.pos import global_kernel_inputs, local_table_kernel_inputs
+
+    dg, links, nodes, mask = hub_batch()
+    B, D = len(links), int(dg.nbr.shape[1])
+    sel, nbr, w, x, row_ids, _ = global_kernel_inputs(dg, links, nodes, mask)
+    lsel, loc, lw, lx, _ = local_table_kernel_inputs(dg, links, nodes, mask)
+    return [(f"hub global S={LARGE_S} D={D} R=2 B={B}",
+             dict(sel_idx=sel, nbr=nbr, w=w, subg_x=x, sign_k=3, row_ids=row_ids), mask),
+            (f"hub local S={LARGE_S} D={loc.shape[2]} R=2 B={B}",
+             dict(sel_idx=lsel, nbr=loc, w=lw, subg_x=lx, sign_k=3, row_ids=None), mask)]
 
 
 def phase_sampled_paths(cfg, graph, split) -> dict:
@@ -1950,6 +2207,7 @@ def main(argv=None) -> int:
     timed("build", phase_build)
     graph, split = split_graph(cfg)
     rows = timed("kernels", phase_kernels, cfg, graph, split, power_limit)
+    lt_rows = timed("local_table", phase_local_table, cfg, graph, split, power_limit)
     bsr_rows = timed("bsr_spmm", phase_bsr_kernel, cfg, graph, split, power_limit)
     launches, hist = timed("e2e", phase_end_to_end, cfg, graph, split)
     timed("label paths", phase_label_paths, cfg, graph, split)
@@ -1988,6 +2246,8 @@ def main(argv=None) -> int:
                       **{t: r[name] for t, r in multi["launches"].items()}}
                for name in WRAPPERS}
     local = {k: v for k, v in rows.items() if k.split()[0] in SCALED_PATHS}
+    hub_label = next(k for k in lt_rows if k.startswith("hub "))
+    hub_lt = lt_rows[hub_label]
     print("multi-device: " + json.dumps({
         "world1": multi["world1"], "scaling_measure_1": multi["scaling"],
         "two_ranks_one_card_gloo": multi["two"]}))
@@ -2022,6 +2282,7 @@ def main(argv=None) -> int:
             "launches": large["launches"][" ".join(k.split()[:2])]["pos_power_rows"]}
             for k, v in rows.items() if k.startswith("hub ")],
         "bfs_crossover": large["crossover"],
+        "local_table_route": large["local_route"],
         "multi_device_launches": multi["world1"]["PoS sharded"]["launches"]["pos_power_rows"],
     }, {
         "name": "bsr_spmm", "route": "cuda",
@@ -2044,6 +2305,17 @@ def main(argv=None) -> int:
             "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms")},
         "multi_device_launches": multi["world1"]["SoP sharded"]["launches"]["bsr_spmm"],
+    }, {
+        "name": "local_table", "route": "cuda",
+        "source": "s3grl_tpu_torch/csrc/local_table.cu", "replaces": None,
+        "note": "no TPU counterpart: the card's build of the table that the JAX package "
+                "builds on the host (s3grl_tpu/native/graphcore.cpp gc_khop_local_tab)",
+        "launches": large["launches"]["hub local"]["local_table"],
+        "max_abs_err": hub_lt["max_abs_err"], "ms": hub_lt["ms"],
+        "plain_ms": hub_lt["plain_ms"], "bound_ms": hub_lt["bound_ms"],
+        "bound_by": hub_lt["bound_by"], "library_ms": None, "shape": hub_label,
+        "device_ms": hub_lt["device_ms"], "launches_by_path": by_path["local_table"],
+        "shapes": lt_rows,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

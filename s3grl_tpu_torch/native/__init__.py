@@ -3,7 +3,10 @@
 ``graphcore.cpp`` is a byte-identical copy of the JAX package's
 ``s3grl_tpu/native/graphcore.cpp`` (a test pins it). The port binds what
 its large-graph PoS route runs: the CSR build, per-link k-hop sizes and
-node sets, each threaded over all of the host's cores. ``g++`` builds it at
+node sets, each threaded over all of the host's cores; and the host
+table build of subgraph-local tables, :func:`khop_local_tab`, which no route
+runs (the card builds those tables, ``ops/local_table.py``) and the tests
+hold the card's tables against. ``g++`` builds it at
 first use into ``build/native/`` at the repository root, under a name that
 carries a hash of the source, the flags and the host CPU's feature flags
 (``-march=native``). Processes that build at once (test workers, say)
@@ -86,6 +89,11 @@ def _load() -> ctypes.CDLL:
         lib.gc_bfs_sizes.argtypes = [i64, i32p, i32p, i64, i32p, i32, i32, i32p]
         lib.gc_khop_nodes.restype = None
         lib.gc_khop_nodes.argtypes = [i64, i32p, i32p, i64, i32p, i32, i32, i32, i32p, i32p]
+        lib.gc_khop_local_tab.restype = None
+        lib.gc_khop_local_tab.argtypes = [
+            i64, i32p, i32p, i64, i32p, i32, i32, i32, i32,
+            i32p, i32p, ctypes.POINTER(ctypes.c_int16), i32p,
+        ]
         _LIB = lib
         return _LIB
 
@@ -152,3 +160,28 @@ def khop_nodes(row_ptr: np.ndarray, col_idx: np.ndarray, links: np.ndarray,
         _ptr(nodes, ctypes.c_int32), _ptr(sizes, ctypes.c_int32),
     )
     return nodes, sizes
+
+
+def khop_local_tab(row_ptr: np.ndarray, col_idx: np.ndarray, links: np.ndarray,
+                   hops: int, max_nodes: int, d_cap: int):
+    """(nodes [L, max_nodes] as :func:`khop_nodes` gives them; sizes [L];
+    loc [L, max_nodes, d_cap] int16: each member row's neighbors that are
+    members, as local slots in CSR order, the target link removed from
+    rows 0 and 1, -1 after; maxdeg [L] the largest local degree, counted
+    past ``d_cap``). The JAX package's host table build
+    (``s3grl_tpu/native/__init__.py`` ``khop_local_tab``)."""
+    lib = _load()
+    n = len(row_ptr) - 1
+    row_ptr, col_idx, links = _i32(row_ptr), _i32(col_idx), _i32(links)
+    L = len(links)
+    nodes = np.empty((L, max_nodes), dtype=np.int32)
+    sizes = np.empty(L, dtype=np.int32)
+    loc = np.empty((L, max_nodes, d_cap), dtype=np.int16)
+    maxdeg = np.empty(L, dtype=np.int32)
+    lib.gc_khop_local_tab(
+        n, _ptr(row_ptr, ctypes.c_int32), _ptr(col_idx, ctypes.c_int32), L,
+        _ptr(links, ctypes.c_int32), hops, max_nodes, d_cap, 0,
+        _ptr(nodes, ctypes.c_int32), _ptr(sizes, ctypes.c_int32),
+        _ptr(loc, ctypes.c_int16), _ptr(maxdeg, ctypes.c_int32),
+    )
+    return nodes, sizes, loc, maxdeg

@@ -12,9 +12,11 @@ tuned_SIGN.py:137-262). A batch of links is processed at once:
    intersection, tuned_SIGN.py:229-238);
 3. the selected rows of Â^k [1|X] for k = 0..K, through the hand-written
    kernel ``ops/pos_kernel.pos_power_rows``: on BFS node sets it resolves
-   subgraph membership straight from the global neighbor table; on ScaLed's
-   local tables it runs in its local-slot mode (``row_ids=None``), as the
-   JAX package's ``use_pallas`` route does (pos.py:254-262).
+   subgraph membership straight from the global neighbor table, or, on the
+   local-table route (below), runs in its local-slot mode (``row_ids=None``)
+   on a table the card builds; on ScaLed's local tables it runs in that
+   mode too, as the JAX package's ``use_pallas`` route does
+   (pos.py:254-262).
 
 The large-graph route (JAX pos.py:654-755, 1023-1060): where no ScaLed and
 no sampling is asked and ``L·E`` reaches :data:`HOST_EXTRACT_MIN_LE` (1e8;
@@ -26,6 +28,20 @@ over the whole split runs first, its size column the bucketing oracle;
 above that ``native.bfs_sizes`` sizes the split and each batch takes its
 own pass. Below the threshold everything runs on the device.
 
+The local-table route (JAX ``pos_operators_local``, pos.py:440-512, and its
+per-bucket branch under ``S3GRL_TPU_LOCAL_TAB=1``, pos.py:1023-1046): on
+BFS node sets, host or device, and without sampling, a bucket may take its
+subgraphs' local neighbor tables, built on the card by the hand-written
+kernel ``ops/local_table.local_table`` from the node sets and the global
+table in one launch, at most ``min(S, D_tab)`` wide
+(:func:`local_table_width`) instead of the global table's width.
+:func:`local_table_route` decides per bucket: ``S3GRL_TPU_LOCAL_TAB`` =
+``1`` in every bucket, ``0`` in none, ``auto`` (the default) where the
+bucket's S is at most :data:`LOCAL_TAB_MAX_S_OVER_D` of the global table's
+width. The datasets are the global route's, bit for bit: the table keeps
+the global table's order of each row's entries, so the kernel adds the
+same terms in the same order.
+
 :func:`pos_operators` keeps the JAX package's gather path on a local
 neighbor table: the plain oracle the tests hold the kernel routes against.
 
@@ -35,14 +51,12 @@ compiler and change no output: the sticky CCN and table-width caches
 the scan route, the ``vmem_ok`` gate (every bucket goes through the kernel
 here), the staircase slot permutation (it changes only the TPU kernel's
 densify cost) and padding batches to a fixed size. Left out too: the
-JAX package's opt-in local-table route (``S3GRL_TPU_LOCAL_TAB``; on the
-card building the tables on the host cost more than the kernel saved, on a
-hub graph and on a graph of small local degrees beside a wide global
-table alike; ROADMAP.md lists the measurements) and
-its pipelined whole-split pass (one pass bucketed once was faster on the
-card). The JAX package's CCN percentile pad (``S3GRL_TPU_CCN_PAD_PCT``)
-is the constant :data:`CCN_PAD_PCT`, 100 (the exact maximum): no workload
-sets it lower. The sharded path's hooks
+JAX package's host build of local tables as a route (on the card it cost
+more than the kernel saved; ``native.khop_local_tab`` is bound as the
+tests' oracle) and its pipelined whole-split pass (one pass bucketed once
+was faster on the card). The JAX package's CCN percentile pad
+(``S3GRL_TPU_CCN_PAD_PCT``) is the constant :data:`CCN_PAD_PCT`, 100 (the
+exact maximum): no workload sets it lower. The sharded path's hooks
 are :func:`pos_plan`'s ``size_oracle`` and ``batch_multiple`` and the
 per-batch body :func:`_extract_and_operate`; the JAX ``extract_fn`` and
 ``out_shardings`` have no counterpart, since each rank runs its share of a
@@ -60,6 +74,7 @@ import torch
 
 from s3grl_tpu_torch import native
 from s3grl_tpu_torch.operators.common import OperatorDataset
+from s3grl_tpu_torch.ops.local_table import local_table, table_width
 from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
 from s3grl_tpu_torch.sampling.extraction import (
     _UNREACHED,
@@ -85,6 +100,9 @@ HOST_EXTRACT_MIN_LE = 1e8
 # The whole-split host BFS pass runs while its [L, max_subgraph_nodes] int32
 # table holds at most this many entries (~256 MB), as in the JAX package.
 KHOP_TABLE_ENTRIES = 6.4e7
+# ``S3GRL_TPU_LOCAL_TAB=auto`` takes the local-table route in a bucket whose
+# S is at most this share of the global table's width (local_table_route).
+LOCAL_TAB_MAX_S_OVER_D = 0.5
 
 
 def _ccn_select(nbr0, nbr1, node_mask, strategy: str, max_ccn: int, R: int):
@@ -119,6 +137,35 @@ def _ccn_select(nbr0, nbr1, node_mask, strategy: str, max_ccn: int, R: int):
     return sel_idx, row_mask
 
 
+def _slot_neighbors(loc_row: torch.Tensor, w_row: torch.Tensor, S: int) -> torch.Tensor:
+    """[B, S] bool: the slots that a row of a local table [B, D] names with
+    a nonzero weight."""
+    B = loc_row.shape[0]
+    idx = torch.where(w_row > 0, loc_row.long(), torch.full_like(loc_row, S, dtype=torch.long))
+    hit = torch.zeros((B, S + 1), dtype=torch.bool, device=loc_row.device)
+    return hit.scatter_(1, idx, True)[:, :S]
+
+
+def _slot_kernel_inputs(x_global, nodes, node_mask, nbr_local, nbr_w, *, max_ccn, strategy):
+    """``pos_power_rows``' inputs in its local-slot mode for node sets
+    [B, S] and their local table [B, S, D]: (sel_idx [B, R] i32, nbr_local,
+    nbr_w, subg_x [B, S, F+1] f32, row_mask [B, R] bool), R = 2 + max_ccn.
+    CCN membership compares the targets' rows with the slots. Invalid CCN
+    slots point at row 0; the row mask zeroes them afterwards."""
+    B, S = nodes.shape
+    dev = nodes.device
+    x_sub = x_global[nodes.long()] * node_mask[:, :, None].to(torch.float32)
+    ind = torch.zeros((B, S, 1), dtype=torch.float32, device=dev)
+    ind[:, :2] = 1.0  # the indicator column on the targets (tuned_SIGN.py:177)
+    subg_x = torch.cat([ind, x_sub], dim=-1)  # [B, S, F+1]
+    nbr0 = nbr1 = None
+    if max_ccn > 0:
+        nbr0 = _slot_neighbors(nbr_local[:, 0], nbr_w[:, 0], S)
+        nbr1 = _slot_neighbors(nbr_local[:, 1], nbr_w[:, 1], S)
+    sel_idx, row_mask = _ccn_select(nbr0, nbr1, node_mask, strategy, max_ccn, 2 + max_ccn)
+    return sel_idx, nbr_local, nbr_w, subg_x, row_mask
+
+
 def local_kernel_inputs(
     sub: SubgraphBatch,
     x_global: torch.Tensor,  # [N, F]
@@ -128,24 +175,64 @@ def local_kernel_inputs(
 ):
     """``pos_power_rows``' inputs in its local-slot mode for one extracted
     batch: (sel_idx [B, R] i32, nbr [B, S, D] i32 local slots, w [B, S, D]
-    f32, subg_x [B, S, F+1] f32, row_mask [B, R] bool), R = 2 + max_ccn.
-    Invalid CCN slots point at row 0; the row mask zeroes them afterwards."""
-    B, S = sub.nodes.shape
-    dev = sub.nodes.device
-    x_sub = x_global[sub.nodes.long()] * sub.node_mask[:, :, None].to(torch.float32)
-    ind = torch.zeros((B, S, 1), dtype=torch.float32, device=dev)
-    ind[:, :2] = 1.0  # the indicator column on the targets (tuned_SIGN.py:177)
-    subg_x = torch.cat([ind, x_sub], dim=-1)  # [B, S, F+1]
+    f32, subg_x [B, S, F+1] f32, row_mask [B, R] bool), R = 2 + max_ccn."""
+    return _slot_kernel_inputs(
+        x_global, sub.nodes, sub.node_mask, sub.nbr_local.to(torch.int32).contiguous(),
+        sub.nbr_w.contiguous(), max_ccn=max_ccn, strategy=strategy,
+    )
 
-    nbr_local = sub.nbr_local.to(torch.int32).contiguous()
-    nbr0 = nbr1 = None
-    if max_ccn > 0:
-        slot = torch.arange(S, device=dev)
-        has_w = sub.nbr_w > 0
-        nbr0 = ((nbr_local[:, 0, :, None] == slot) & has_w[:, 0, :, None]).any(1)
-        nbr1 = ((nbr_local[:, 1, :, None] == slot) & has_w[:, 1, :, None]).any(1)
-    sel_idx, row_mask = _ccn_select(nbr0, nbr1, sub.node_mask, strategy, max_ccn, 2 + max_ccn)
-    return sel_idx, nbr_local, sub.nbr_w.contiguous(), subg_x, row_mask
+
+def local_table_width(dg: DeviceGraph, S: int) -> int:
+    """The width of a bucket's local tables, one no row can pass:
+    ``min(S, D_tab)`` rounded up to 32 (a row names each member at most once
+    and has at most ``D_tab`` live entries), or ``D_tab`` rounded up where
+    the global table repeats a neighbor."""
+    D = int(dg.nbr.shape[1])
+    return table_width(D if dg.repeats_a_neighbor() else min(S, D))
+
+
+def local_table_kernel_inputs(
+    dg: DeviceGraph,
+    links: torch.Tensor,  # [B, 2]
+    nodes: torch.Tensor,  # [B, S] global ids (slot 0 = src, 1 = dst)
+    node_mask: torch.Tensor,  # [B, S]
+    *,
+    max_ccn: int = 0,
+    strategy: str = "",
+):
+    """The kernel's inputs on the local-table route, beside
+    :func:`global_kernel_inputs`: the batch's local table built on the card
+    (``ops/local_table.local_table``, at :func:`local_table_width`), then
+    :func:`local_kernel_inputs`' (sel_idx, nbr, w, subg_x, row_mask) on it."""
+    loc, w, _, _ = local_table(dg.nbr, dg.degrees(), nodes.to(torch.int32).contiguous(),
+                               node_mask.contiguous(), links,
+                               local_table_width(dg, int(nodes.shape[1])))
+    return _slot_kernel_inputs(dg.x, nodes, node_mask, loc, w, max_ccn=max_ccn,
+                               strategy=strategy)
+
+
+def pos_operators_local(
+    dg: DeviceGraph,
+    nodes: torch.Tensor,  # [B, S] global ids (slot 0 = src, 1 = dst)
+    node_mask: torch.Tensor,  # [B, S]
+    loc_nbr: torch.Tensor,  # [B, S, D] integer local slots, -1 pad, link removed
+    *,
+    sign_k: int,
+    max_ccn: int = 0,
+    strategy: str = "",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """PoS(+) operators from a subgraph-LOCAL neighbor table (JAX
+    ``pos_operators_local``): the semantics of :func:`pos_operators_global`
+    (the target link already removed from the table), with the kernel in
+    its local-slot mode at the table's width. Weights ``(loc >= 0) &
+    node_mask``. Returns (xs [B, K+1, R, F+1] f32, row_mask [B, R])."""
+    loc = loc_nbr.to(torch.int32).contiguous()
+    w = ((loc >= 0) & node_mask[:, :, None]).to(torch.float32)
+    sel_idx, loc, w, subg_x, row_mask = _slot_kernel_inputs(
+        dg.x, nodes, node_mask, loc, w, max_ccn=max_ccn, strategy=strategy
+    )
+    xs = pos_power_rows(sel_idx, loc, w, subg_x, sign_k=sign_k)
+    return xs * row_mask[:, None, :, None], row_mask
 
 
 def pos_operators(
@@ -423,6 +510,17 @@ def host_extract_route(dg: DeviceGraph, num_links: int, *, scaled: bool,
     )
 
 
+def local_table_route(bucket: int, table_width: int, *, sampled: bool = False) -> bool:
+    """Whether a PoS bucket of BFS node sets takes the local-table route:
+    never with per-hop sampling; else by ``S3GRL_TPU_LOCAL_TAB``: ``1``
+    always, ``0`` never, ``auto`` (the default) where ``bucket`` is at most
+    :data:`LOCAL_TAB_MAX_S_OVER_D` of the global table's width."""
+    mode = os.environ.get("S3GRL_TPU_LOCAL_TAB", "auto")
+    if sampled or mode == "0":
+        return False
+    return mode == "1" or bucket <= LOCAL_TAB_MAX_S_OVER_D * table_width
+
+
 def _extract_and_operate(
     dg: DeviceGraph,
     links: torch.Tensor,  # [B, 2]
@@ -442,8 +540,9 @@ def _extract_and_operate(
     """One link batch (JAX ``_extract_and_operate``): its node sets, by
     ScaLed's walks (``rw_m``/``rw_M``), the host BFS's table ``host_nodes``
     [B, S] (-1 on empty slots) or the device BFS, then their PoS(+)
-    operators through ``pos_power_rows``. Returns (xs [B, K+1, R, F+1],
-    row_mask [B, R])."""
+    operators through ``pos_power_rows``, on the global table or, where
+    :func:`local_table_route` takes it, on the local tables the card builds.
+    Returns (xs [B, K+1, R, F+1], row_mask [B, R])."""
     dev = links.device
     if rw_m and rw_M:
         sub = extract_rw_subgraphs(dg, links, link_seeds, rw_m=rw_m, rw_M=rw_M,
@@ -458,6 +557,13 @@ def _extract_and_operate(
             dg, links, num_hops=num_hops, max_nodes=max_nodes, ratio_per_hop=ratio_per_hop,
             max_nodes_per_hop=max_nodes_per_hop, link_seeds=link_seeds,
         )
+    if local_table_route(max_nodes, int(dg.nbr.shape[1]),
+                         sampled=samples(ratio_per_hop, max_nodes_per_hop)):
+        sel_idx, loc, w, subg_x, row_mask = local_table_kernel_inputs(
+            dg, links, nodes, node_mask, max_ccn=max_ccn, strategy=strategy
+        )
+        xs = pos_power_rows(sel_idx, loc, w, subg_x, sign_k=sign_k)
+        return xs * row_mask[:, None, :, None], row_mask
     return pos_operators_global(dg, links, nodes, node_mask, sign_k=sign_k, max_ccn=max_ccn,
                                 strategy=strategy)
 
@@ -627,10 +733,16 @@ def pos_plan(
         )
     order = np.argsort(sizes, kind="stable")
     bucket_of = np.array([pick_bucket(int(s), buckets) for s in sizes[order]])
+    scaled = bool(rw_m and rw_M)
+    sampled = samples(ratio_per_hop, max_nodes_per_hop)
     batches = []
     for bucket in np.unique(bucket_of):
         idx_all = order[bucket_of == bucket]
-        cap = batch_cap(int(bucket), F, D_tab, eff_ccn, batch_size)
+        # A local bucket's tables are at most min(bucket, D_tab) wide (JAX
+        # pos.py:775-797).
+        local = not scaled and local_table_route(int(bucket), D_tab, sampled=sampled)
+        cap = batch_cap(int(bucket), F, min(int(bucket), D_tab) if local else D_tab, eff_ccn,
+                        batch_size)
         cap = -(-cap // batch_multiple) * batch_multiple
         batches += [(int(bucket), idx_all[start : start + cap])
                     for start in range(0, len(idx_all), cap)]

@@ -67,11 +67,28 @@ def pos_selector_rows_reference(
 ) -> torch.Tensor:
     """Plain torch version of the selector phase: ``H [B, K·R, S]`` float32,
     row ``(k-1)·R + r`` holding row ``sel[r]`` of ``Â^k`` for k = 1..K
-    (gather/scatter form)."""
-    B, S, D = nbr.shape
+    (gather/scatter form).
+
+    Like the kernel, it first packs each row's resolved nonzero-weight
+    entries to the front, in order, at the batch's largest count rounded up
+    to a multiple of 32: two tables that list the same entries in the same
+    order (global ids, or the local slots of the same subgraphs) then give
+    the same bits, however wide each table is, and so do a batch and a
+    share of it (torch's sum over a row of such a width does not depend on
+    the zeros after its entries)."""
+    B, S, _ = nbr.shape
     R = sel_idx.shape[1]
     loc, found = _resolve_slots(nbr, row_ids, S)
-    wv = torch.where(found, w.reshape(B, S * D).float(), torch.zeros((), device=w.device))
+    keep = (found & (w.reshape(B, -1) != 0)).reshape(B, S, -1)
+    rank = torch.cumsum(keep, dim=2)
+    D = 32 * max(1, -(-(int(rank[:, :, -1].max()) if rank.numel() else 0) // 32))
+    col = torch.where(keep, rank - 1, torch.full_like(rank, D))
+    packed_loc = torch.zeros((B, S, D + 1), dtype=torch.int64, device=w.device)
+    packed_loc.scatter_(2, col, torch.where(keep.reshape(B, -1), loc, 0).reshape(B, S, -1))
+    packed_w = torch.zeros((B, S, D + 1), dtype=torch.float32, device=w.device)
+    packed_w.scatter_(2, col, torch.where(keep, w.float(), 0.0))
+    loc = packed_loc[:, :, :D].reshape(B, S * D)
+    wv = packed_w[:, :, :D].reshape(B, S * D)
     coldeg = wv.reshape(B, S, D).sum(dim=-1)
     rowdeg = torch.zeros((B, S), dtype=torch.float32, device=w.device)
     rowdeg.scatter_add_(1, loc, wv)

@@ -86,6 +86,29 @@ class DeviceGraph:
     def device(self) -> torch.device:
         return self.nbr.device
 
+    def degrees(self) -> torch.Tensor:
+        """[N] int32 on the device: the live prefix of each row of ``nbr``
+        (the node's degree, at most the table's width), counted once per
+        graph."""
+        deg = self.__dict__.get("_degrees")
+        if deg is None:
+            deg = self.nbr_mask.sum(dim=1, dtype=torch.int32)
+            object.__setattr__(self, "_degrees", deg)
+        return deg
+
+    def repeats_a_neighbor(self) -> bool:
+        """Whether a row's live prefix of ``nbr`` names one neighbor twice
+        (a repeated edge), found once per graph: without repeats no row of a
+        subgraph-local table holds more entries than the subgraph has
+        slots."""
+        found = self.__dict__.get("_repeats")
+        if found is None:
+            N = self.num_nodes
+            ids = torch.sort(torch.where(self.nbr_mask, self.nbr, N), dim=1).values
+            found = bool(((ids[:, 1:] == ids[:, :-1]) & (ids[:, 1:] < N)).any())
+            object.__setattr__(self, "_repeats", found)
+        return found
+
     def host_csr(self) -> tuple[np.ndarray, np.ndarray]:
         """(row_ptr [N+1], col_idx [E]) of the edge list by the native host
         core, built once per graph."""

@@ -9,6 +9,7 @@ installed:
     python -m pytest -p no:cacheprovider -q -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -640,3 +641,113 @@ def test_world_one_nccl_sharded_precompute_equals_one_process(tmp_path, monkeypa
         assert torch.equal(sop.xs, precompute_sop(dg, links, y, sign_k=3).xs)
     finally:
         dist.destroy_process_group()
+
+
+def _main_path_batch(dev, B=64, S=256):
+    """B train links of the USAir-like graph (bench config: 2 hops, degree
+    features; the global table 96 wide) and their device-BFS node sets at S."""
+    from s3grl_tpu_torch.data.features import init_features
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph, extract_node_sets
+    from torch_port_helpers import usair_like_edges
+
+    ei = usair_like_edges(1)
+    n = int(ei.max()) + 1
+    g = init_features(Graph(num_nodes=n, edge_index=ei), "degree")
+    dg = DeviceGraph.from_graph(g, device=dev)
+    links = torch.as_tensor(ei[:, :: ei.shape[1] // B][:, :B].T.copy(), device=dev)
+    nodes, mask, _, _ = extract_node_sets(dg, links, num_hops=2, max_nodes=S)
+    return dg, links, nodes, mask
+
+
+def _card_batches(dev):
+    """{label: (dg, links, nodes, mask)}: the main path's S = 256 batch and
+    a hub batch (S = 1,024 on the 3,392-wide table)."""
+    dg, links, nd = _hub_batch(dev, B=8)
+    hub = (dg, torch.as_tensor(links, device=dev),
+           torch.as_tensor(np.where(nd >= 0, nd, 0), device=dev),
+           torch.as_tensor(nd >= 0, device=dev))
+    return {"S256": _main_path_batch(dev), "hub": hub}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["S256", "hub"])
+def test_local_table_kernel_equals_plain_version(which):
+    """The card-built local table, its weights and degrees, equal to the
+    plain version's bit for bit (integer output)."""
+    from s3grl_tpu_torch.operators.pos import local_table_width
+    from s3grl_tpu_torch.ops.local_table import local_table, local_table_reference
+
+    dev = _cuda()
+    dg, links, nodes, mask = _card_batches(dev)[which]
+    args = (dg.nbr, dg.degrees(), nodes.to(torch.int32).contiguous(), mask, links,
+            local_table_width(dg, nodes.shape[1]))
+    before = local_table.launches
+    got = local_table(*args)
+    torch.cuda.synchronize()
+    assert local_table.launches == before + 1
+    for a, b in zip(got, local_table_reference(*args)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(got[3].max()) <= got[0].shape[2] == args[-1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["S256", "hub"])
+@pytest.mark.parametrize("ccn", [0, 32])
+def test_pos_power_rows_on_the_local_table_equals_the_global_call(which, ccn):
+    """``pos_power_rows`` in local-slot mode on the card-built table gives
+    the bits of the global-id call on the same node sets."""
+    from s3grl_tpu_torch.operators.pos import global_kernel_inputs, local_table_kernel_inputs
+
+    dev = _cuda()
+    dg, links, nodes, mask = _card_batches(dev)[which]
+    kw = dict(max_ccn=ccn, strategy="union")
+    sel, nbr, w, x, row_ids, rm = global_kernel_inputs(dg, links, nodes, mask, **kw)
+    want = pos_power_rows(sel, nbr, w, x, sign_k=3, row_ids=row_ids)
+    lsel, loc, lw, lx, lrm = local_table_kernel_inputs(dg, links, nodes, mask, **kw)
+    assert torch.equal(lsel, sel) and torch.equal(lrm, rm) and torch.equal(lx, x)
+    assert loc.shape[2] <= nbr.shape[2]
+    got = pos_power_rows(lsel, loc, lw, lx, sign_k=3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["host", "device"])
+def test_precompute_pos_local_route_equals_the_global_route_on_the_card(monkeypatch, route):
+    from s3grl_tpu_torch.ops.local_table import local_table
+    from s3grl_tpu_torch.operators.pos import precompute_pos
+
+    dev = _cuda("it holds the card's two routes against each other")
+    dg, links, _ = _hub_batch(dev, B=48)
+    y = np.ones(len(links), np.float32)
+    kw = dict(num_hops=2, sign_k=3, k_heuristic=1, k_node_set_strategy="intersection",
+              max_ccn=16, device=dev)
+    monkeypatch.setenv("S3GRL_TPU_HOST_EXTRACT", "1" if route == "host" else "0")
+    monkeypatch.setenv("S3GRL_TPU_LOCAL_TAB", "0")
+    want = precompute_pos(dg, links, y, **kw)
+    monkeypatch.setenv("S3GRL_TPU_LOCAL_TAB", "1")
+    before = local_table.launches
+    got = precompute_pos(dg, links, y, **kw)
+    assert local_table.launches > before
+    assert torch.equal(got.row_mask, want.row_mask) and torch.equal(got.xs, want.xs)
+
+
+@pytest.mark.gpu
+def test_a_failed_kernel_build_raises(monkeypatch, tmp_path):
+    """nvcc refusing a flag: the build raises naming nvcc's output, and no
+    library is left."""
+    from s3grl_tpu_torch.ops import _build
+    from s3grl_tpu_torch.ops.local_table import local_table
+
+    dev = _cuda("nvcc runs where the card is")
+    dg, links, nodes, mask = _main_path_batch(dev, B=4, S=32)
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("--no-such-flag",))
+    _build.load.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="kernel build failed"):
+            local_table(dg.nbr, dg.degrees(), nodes, mask, links, 32)
+    finally:
+        _build.load.cache_clear()
+    assert not [f for f in os.listdir(tmp_path) if f.endswith(".so")]

@@ -40,7 +40,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "models.gae", "models.svgae", "models.gic", "models.init_representation",
               "models.baselines", "models.walkpool", "train.walkpool_loop",
               "train.checkpoint", "profiling", "manager", "tuning", "analysis", "data.ogb",
-              "ops.segment", "native", "sampling.prng", "parallel", "parallel.mesh",
+              "ops.segment", "ops.local_table", "native", "sampling.prng", "parallel", "parallel.mesh",
               "parallel.dist", "parallel.scaling"):
         assert f"s3grl_tpu_torch.{m}" in mods, m
     code = (
