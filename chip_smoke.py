@@ -23,11 +23,12 @@ non-zero without the final line:
    first batch of one-hot endpoint columns (C = 2B = 8,192) and on a
    Cora-shaped random graph, with the edge-list route's time and one
    ``torch.sparse.mm`` as a yardstick; ``pos_power_rows`` on the hub
-   batch's global table and on the local tables the card builds for it,
-   whose outputs must be equal bit for bit; then ``local_table`` against its
-   plain version, bit for bit, on the main path's S = 256 batch and the
-   hub batch, with its device time, the two-pass alternative's and its
-   bound (``phase_local_table``);
+   graph's first global batch (B = 32) on the global table, on the local
+   tables the card builds for the same links, and on the local route's own
+   first batch (B = 64), whose outputs must equal the global row's bit for
+   bit; then ``local_table`` against its plain version, bit for bit, on the
+   main path's S = 256 batch and the local route's first hub batch, with
+   its device time and its bound (``phase_local_table``);
 4. end to end: ``run_sgrl_learning`` on a synthetic USAir-shaped graph
    with the bench.py config (USAir, sign_k 3, 2 hops, degree features,
    hidden 256, batch 32, lr 1e-4), 5 epochs, seed 1, once per sign type
@@ -69,10 +70,15 @@ non-zero without the final line:
     graph (hub degree 3,377: a global table 3,392 wide) by both routes,
     bit for bit; phase 3 also holds ``pos_power_rows`` on that graph's
     first S = 1,024 batch against its plain version; then the local-table
-    route (``S3GRL_TPU_LOCAL_TAB=1``, its tables built on the card) against
-    the global routes, bit for bit, with each route's prep timed twice, on
-    the hub graph, a narrow-local graph (50,004 nodes, a global table 3,008
-    wide, 1 hop) and an arxiv-shaped graph (a global table 512 wide);
+    routes (``S3GRL_TPU_LOCAL_TAB=1``, its tables built on the card, on the
+    host's and on the device BFS's node sets) against the global routes,
+    bit for bit, with each route's prep timed twice (six times on the
+    Cora-shaped graph), on the hub graph, a narrow-local graph (50,004
+    nodes, a global table 3,008 wide, 1 hop), an arxiv-shaped graph (a
+    global table 512 wide) and a Cora-shaped graph (a global table 192
+    wide, with the auto route); and the threshold's
+    sweep: one batch's operators by each route at S/D_tab 0.17 to 1 on
+    three of those graphs (``threshold_rows``);
 12. sampled paths (``SAMPLED_PATHS``): the bench config with
     ``ratio_per_hop`` 0.5 and SEAL with ``max_nodes_per_hop`` 10, each
     one's prep, train rate, peak memory and best test AUC against the JAX
@@ -115,6 +121,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -519,7 +526,7 @@ def phase_kernels(cfg, graph, split, power_limit: str):
     for label, kw, node_mask in cases:
         got = pos_power_rows(**kw)
         if label.startswith("hub "):
-            hub_out[label.split()[1]] = got
+            hub_out[label] = got
         want = pos_power_rows_reference(**kw)
         torch.cuda.synchronize()
         diff = (got - want).abs()
@@ -571,17 +578,20 @@ def phase_kernels(cfg, graph, split, power_limit: str):
               f"{f4(ratio(bound_ms, device_ms))}; resolved entries {int(nnz.sum())} "
               f"(per subgraph mean {nnz.mean():.1f}, max {int(nnz.max())}; "
               f"{int((nnz > cap).sum())} of {B} over the {cap}-entry shared-memory list)")
-    if not torch.equal(hub_out["local"], hub_out["global"]):
-        raise AssertionError("pos_power_rows on the hub batch's local tables differs from "
-                             "the global-table call")
-    print("  hub local and hub global outputs equal bit for bit")
+    want = next(v for k, v in hub_out.items() if k.startswith("hub global"))
+    for label, got in hub_out.items():
+        if label.startswith("hub local") and not torch.equal(got[:len(want)], want):
+            raise AssertionError(f"pos_power_rows on the local tables at {label} differs from "
+                                 f"the global-table call")
+    print("  each hub local row equal to the hub global row bit for bit (on the links both "
+          "batches hold)")
     return rows
 
 
 def local_table_batches(cfg, graph, split) -> dict:
     """{label: (DeviceGraph, links [B, 2], nodes [B, S] int32, node mask)}:
     the main path's S = 256 batch as :func:`kernel_cases` builds it, and
-    :func:`hub_batch`."""
+    the local route's first batch of the hub graph (:func:`hub_batch`)."""
     import torch
 
     from s3grl_tpu_torch.data.features import init_features
@@ -594,7 +604,7 @@ def local_table_batches(cfg, graph, split) -> dict:
     links_all = np.concatenate([split.train_pos, split.train_neg]).astype(np.int32)
     lb = torch.as_tensor(np.tile(links_all, (-(-B // len(links_all)), 1))[:B], device="cuda")
     nodes, mask, _, _ = extract_node_sets(dg, lb, num_hops=cfg.num_hops, max_nodes=S)
-    hub = hub_batch()
+    hub = hub_batch(local=True)
     return {f"main path S={S} B={B}": (dg, lb, nodes, mask),
             f"hub S={LARGE_S} B={len(hub[1])}": hub}
 
@@ -604,11 +614,9 @@ def phase_local_table(cfg, graph, split, power_limit: str) -> dict:
     bit for bit (integer output), on :func:`local_table_batches`, at the
     route's width (``operators/pos.local_table_width``); its device time by
     graph replay of its one launch, its time a call on the stream
-    (``call_ms``), the two-pass alternative's device time (a count launch,
-    the batch's largest degree, a write launch at that degree rounded up;
-    the host's read between them cannot be captured and is left out), the
-    plain version's time and the bound of ``local_table.work`` (the member
-    rows' live entries; over whole rows of the global table beside it)."""
+    (``call_ms``), the plain version's time and the bound of
+    ``local_table.work`` (the member rows' live entries; over whole rows of
+    the global table beside it)."""
     import torch
 
     from s3grl_tpu_torch.operators.pos import local_table_width
@@ -622,45 +630,31 @@ def phase_local_table(cfg, graph, split, power_limit: str) -> dict:
     for label, (dg, links, nodes, mask) in local_table_batches(cfg, graph, split).items():
         nodes = nodes.to(torch.int32).contiguous()
         l32 = links.to(torch.int32).contiguous()
-        B, S = nodes.shape
         D, W = int(dg.nbr.shape[1]), local_table_width(dg, int(nodes.shape[1]))
         args = (dg.nbr, dg.degrees(), nodes, mask, l32)
         got = lt.local_table(*args, W)
         want = lt.local_table_reference(*args, W)
         torch.cuda.synchronize()
-        for a, b, name in zip(got, want, ("loc", "w", "ldeg", "mdeg")):
+        for a, b, name in zip(got, want, ("loc", "w")):
             if a.dtype != b.dtype or not torch.equal(a, b):
                 raise AssertionError(f"local_table's {name} differs from its plain version "
                                      f"at {label}")
-        mdeg = got[3].cpu().numpy()
-        W2 = lt.table_width(int(mdeg.max()))
-        ldeg = torch.empty((B, S), dtype=torch.int32, device="cuda")
-        loc2 = torch.empty((B, S, W2), dtype=torch.int32, device="cuda")
-        w2 = torch.empty((B, S, W2), dtype=torch.float32, device="cuda")
-
-        def two_pass():
-            lt.launch(*args, 0, ldeg)
-            ldeg.amax(dim=1)
-            lt.launch(*args, W2, ldeg, loc2, w2)
-
+        mdeg = (got[0] >= 0).sum(dim=2).amax(dim=1).cpu().numpy()
         device_ms = timing.graph_ms(lambda: lt.local_table(*args, W))
-        two_pass_ms = timing.graph_ms(two_pass)
         ms = timing.call_ms(lambda: lt.local_table(*args, W))
         plain_ms = timing.call_ms(lambda: lt.local_table_reference(*args, W), reps=3)
         live = lt.work(dg.nbr, dg.degrees(), nodes, mask, W, count="live")
         padded = lt.work(dg.nbr, dg.degrees(), nodes, mask, W, count="padded")
         b_ms, by = bound_ms(live, rates)
         p_ms = bound_ms(padded, rates)[0]
-        rows[label] = dict(max_abs_err=0.0, ms=ms, device_ms=device_ms,
-                           two_pass_device_ms=two_pass_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=by, padded_bound_ms=p_ms, width=W, two_pass_width=W2,
+        rows[label] = dict(max_abs_err=0.0, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=by, padded_bound_ms=p_ms, width=W,
                            n_bytes=live.n_bytes, mdeg_max=int(mdeg.max()),
                            mdeg_mean=float(mdeg.mean()))
         print(f"  {label} D_tab={D}: equal bit for bit; width {W} (mdeg mean "
               f"{mdeg.mean():.1f}, max {int(mdeg.max())}); kernel {device_ms:.4f} ms device "
-              f"by graph replay, {ms:.4f} ms a call on the stream; the two-pass alternative "
-              f"(count, write at width {W2}) {two_pass_ms:.4f} ms device; plain "
-              f"{plain_ms:.4f} ms; bound {f4(b_ms)} ms ({by}: {live.n_bytes / 1e6:.1f} MB; "
+              f"by graph replay, {ms:.4f} ms a call on the stream; plain {plain_ms:.4f} ms; "
+              f"bound {f4(b_ms)} ms ({by}: {live.n_bytes / 1e6:.1f} MB; "
               f"{f4(p_ms)} ms reading whole global rows) share of bound "
               f"{f4(ratio(b_ms, device_ms))}")
     return rows
@@ -846,6 +840,8 @@ def phase_bsr_kernel(cfg, graph, split, power_limit: str):
 TIMER_ROWS = ("global S=256 R=2 ", "hub ")
 TIMER_AGREE = 0.10
 PROFILER_REPS = 20
+# Profiler sessions a row may take until one keeps events of both kernels.
+PROFILER_SESSIONS = 3
 
 
 def fmt_profile(prof: dict) -> str:
@@ -856,11 +852,18 @@ def fmt_profile(prof: dict) -> str:
 
 def profiled_pos(kw) -> tuple[dict, float]:
     """``timing.profile_kernels`` of ``pos_power_rows(**kw)`` and the sum of
-    its two kernels' per-launch means (each launches once a call)."""
+    its two kernels' per-launch means (each launches once a call). Late in a
+    long process a session can miss every launch of its window (``PERF.md``
+    §6): a session that kept no event of one of the two kernels is taken
+    again, up to PROFILER_SESSIONS in all (``prof["sessions"]``)."""
     from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
     from s3grl_tpu_torch.utils import timing
 
-    prof = timing.profile_kernels(lambda: pos_power_rows(**kw), PROFILER_REPS)
+    for sessions in range(1, PROFILER_SESSIONS + 1):
+        prof = timing.profile_kernels(lambda: pos_power_rows(**kw), PROFILER_REPS)
+        if len(prof["launches"]) == 2:
+            break
+    prof["sessions"] = sessions
     return prof, sum(v for k, v in prof["by_name"].items() if k.startswith("pos_"))
 
 
@@ -884,8 +887,9 @@ def phase_device_times(cfg, graph, split, rows, bsr_rows, power_limit: str) -> N
         prof, r["profiler_ms"] = profiled_pos(kw)
         agree = r["profiler_ms"] / r["device_ms"] - 1
         print(f"  pos_power_rows {label}: {fmt_profile(prof)} (of {2 * PROFILER_REPS} "
-              f"launched); the two kernels {r['profiler_ms']:.4f} ms against "
-              f"{r['device_ms']:.4f} ms by graph replay ({agree:+.3%}); the kept events' sum "
+              f"launched; session {prof['sessions']}); the two kernels "
+              f"{r['profiler_ms']:.4f} ms against {r['device_ms']:.4f} ms by graph replay "
+              f"({agree:+.3%}); the kept events' sum "
               f"over the calls {prof['kept_sum_ms']:.4f} ms; share of bound "
               f"{f4(ratio(r['bound_ms'], r['device_ms']))}")
         if label.startswith(TIMER_ROWS) and (len(prof["launches"]) != 2
@@ -1417,6 +1421,8 @@ NARROW_HUBS = 4
 NARROW_HUB_DEGREE = 3_000
 NARROW_LINKS = 2_048
 NARROW_HOPS = 1
+# Observed links of the Cora-shaped graph (cora_graph) through precompute_pos.
+CORA_LINKS = 8_192
 
 
 def sync_s(t0: float) -> float:
@@ -1465,22 +1471,27 @@ def device_node_sets(dg, links):
 
 
 # precompute_pos' routes: the auto choice; the host or the device BFS on the
-# global table; the host BFS's node sets on the local tables the card builds.
+# global table; the host or the device BFS's node sets on the local tables
+# the card builds.
 ROUTES = {"auto": {},
           "host": dict(S3GRL_TPU_HOST_EXTRACT="1", S3GRL_TPU_LOCAL_TAB="0"),
           "device": dict(S3GRL_TPU_HOST_EXTRACT="0", S3GRL_TPU_LOCAL_TAB="0"),
-          "local": dict(S3GRL_TPU_HOST_EXTRACT="1", S3GRL_TPU_LOCAL_TAB="1")}
+          "local": dict(S3GRL_TPU_HOST_EXTRACT="1", S3GRL_TPU_LOCAL_TAB="1"),
+          "device-local": dict(S3GRL_TPU_HOST_EXTRACT="0", S3GRL_TPU_LOCAL_TAB="1")}
+# Each route on the local tables beside the same BFS on the global table.
+LOCAL_PAIRS = (("local", "host"), ("device-local", "device"))
 
 
 def prep_both_ways(dg, links, label: str, routes=("host", "device"), hops: int = LARGE_HOPS,
-                   twice: bool = False) -> dict:
+                   rounds: int = 0) -> dict:
     """``precompute_pos`` (``hops`` hops, K = 3) of ``links`` by each of
     ``routes`` (ROUTES), which must give the same datasets bit for bit, each
     route's counts set to 0 just before it and read just after: {route:
-    (prep s, launches)}. The local route must launch ``local_table`` and the
-    others must not. With ``twice``, the graph's host CSR and degrees are
-    built first, and the routes run once untimed, then timed in order and
-    again in reverse order (prep s is then the pair)."""
+    (prep s, launches)}. The local routes must launch ``local_table`` and the
+    global ones must not. With ``rounds``, the graph's host CSR and degrees
+    are built first, and the routes run once untimed, then ``rounds`` timed
+    passes, in order and in reverse order by turns (prep s is then the
+    tuple of readings)."""
     import torch
 
     from s3grl_tpu_torch.operators.pos import precompute_pos
@@ -1495,13 +1506,13 @@ def prep_both_ways(dg, links, label: str, routes=("host", "device"), hops: int =
             out[route] = precompute_pos(dg, links, y, num_hops=hops, sign_k=3, device="cuda")
         return sync_s(t0), kernel_counts()
 
-    if twice:
+    if rounds:
         dg.host_csr()
         dg.degrees()
         for route in routes:
             run(route)
         times = {route: [] for route in routes}
-        for route in (*routes, *routes[::-1]):
+        for route in [r for i in range(rounds) for r in routes[:: 1 - 2 * (i % 2)]]:
             t, counts = run(route)
             times[route].append(t)
             rows[route] = (tuple(times[route]), counts)
@@ -1514,11 +1525,11 @@ def prep_both_ways(dg, links, label: str, routes=("host", "device"), hops: int =
             raise AssertionError(f"{label}: the {routes[0]} and {route} routes' datasets differ")
     for route, (_, counts) in rows.items():
         took = counts["local_table"] > 0
-        if route in ("host", "device", "local") and took != (route == "local"):
+        if route != "auto" and took != route.endswith("local"):
             raise AssertionError(f"{label}: the {route} route launched local_table "
                                  f"{counts['local_table']} times")
-        if route == "local" and counts["pos_power_rows"] == 0:
-            raise AssertionError(f"{label}: the local route never launched pos_power_rows")
+        if route.endswith("local") and counts["pos_power_rows"] == 0:
+            raise AssertionError(f"{label}: the {route} route never launched pos_power_rows")
 
     def fmt(t):
         return " / ".join(f"{x:.4f}" for x in t) if isinstance(t, tuple) else f"{t:.4f}"
@@ -1545,27 +1556,29 @@ def local_widths(dg, links, hops: int) -> dict:
     for bucket, idx in plan.batches:
         nd, _ = native.khop_nodes(*dg.host_csr(), links[idx], hops, bucket)
         width = local_table_width(dg, bucket)
-        mdeg = local_table(dg.nbr, dg.degrees(),
-                           torch.as_tensor(np.where(nd >= 0, nd, 0), device="cuda"),
-                           torch.as_tensor(nd >= 0, device="cuda"),
-                           torch.as_tensor(links[idx], device="cuda"), width)[3]
+        loc = local_table(dg.nbr, dg.degrees(),
+                          torch.as_tensor(np.where(nd >= 0, nd, 0), device="cuda"),
+                          torch.as_tensor(nd >= 0, device="cuda"),
+                          torch.as_tensor(links[idx], device="cuda"), width)[0]
+        mdeg = (loc >= 0).sum(dim=2).max()
         n_b, n_l, _, degs = out.get(bucket, (0, 0, width, []))
         out[bucket] = (n_b + 1, n_l + len(idx), width, degs + [int(mdeg.max())])
     return out
 
 
-def local_route_rows(dg, links, label: str, routes, hops: int = LARGE_HOPS) -> dict:
+def local_route_rows(dg, links, label: str, routes, hops: int = LARGE_HOPS,
+                     rounds: int = 2) -> dict:
     """The local route against the global routes on one graph
-    (:func:`prep_both_ways` with ``twice``), with the plan's buckets, each
-    bucket's S over the global table's width D_tab, and the local tables'
-    widths: the readings the ``auto`` threshold stands on."""
+    (:func:`prep_both_ways`, ``rounds`` timed passes), with the plan's
+    buckets, each bucket's S over the global table's width D_tab, and the
+    local tables' widths: the readings the ``auto`` threshold stands on."""
     D = int(dg.nbr.shape[1])
     widths = local_widths(dg, links, hops)
     print(f"  {label}: D_tab {D}, {len(links)} links, {hops} hop(s); buckets (batches, "
           f"links, S/D_tab, table width, batches' largest local degree): " + "; ".join(
               f"{b}: ({nb}, {nl}, {b / D:.3f}, {w}, {min(ds)}-{max(ds)})"
               for b, (nb, nl, w, ds) in sorted(widths.items())))
-    prep = prep_both_ways(dg, links, label, routes, hops=hops, twice=True)
+    prep = prep_both_ways(dg, links, label, routes, hops=hops, rounds=rounds)
     return dict(d_tab=D, links=len(links), hops=hops,
                 buckets={str(b): dict(batches=nb, links=nl, s_over_d=b / D, width=w,
                                       max_local_degree=ds)
@@ -1653,26 +1666,99 @@ def phase_large_graphs(cfg, graph, split, power_limit: str) -> dict:
               f"{[f'{x:.1e}' for x in measured]}; the default threshold is "
               f"{HOST_EXTRACT_MIN_LE:.0e}")
 
-    # The local-table route against the global routes: the hub graph, the
-    # narrow-local graph and the arxiv-shaped graph.
-    local = {}
-    for name, (g, dg, links), hops, routes in (
-            ("hub", hub_graph(), LARGE_HOPS, ("host", "device", "local")),
-            ("narrow-local", narrow_graph(), NARROW_HOPS, ("host", "device", "local")),
-            ("arxiv-shaped", arxiv_graph(), LARGE_HOPS, ("host", "local"))):
+    # The local-table routes against the global routes on the same BFS: the
+    # hub graph, the narrow-local graph, the arxiv-shaped graph, and the
+    # Cora-shaped graph, where auto takes local tables in its small buckets
+    # only; then the threshold's sweep (SWEEP).
+    local, sweep = {}, {}
+    both = ("host", "device", "local", "device-local")
+    for name, make, hops, routes, rounds in (
+            ("hub", hub_graph, LARGE_HOPS, both, 2),
+            ("narrow-local", narrow_graph, NARROW_HOPS, both, 2),
+            ("arxiv-shaped", arxiv_graph, LARGE_HOPS, ("host", "local"), 2),
+            ("cora-shaped", cora_graph, LARGE_HOPS, ("device", "device-local", "auto"), 6)):
+        g, dg, links = make()
         local[name] = local_route_rows(dg, links, f"{name} graph (N={g.num_nodes})", routes,
-                                       hops=hops)
-        launches[f"{name} local"] = local[name]["launches"]["local"]
-        launches[f"{name} global"] = local[name]["launches"]["host"]
+                                       hops=hops, rounds=rounds)
+        for route in routes:
+            key = f"{name} {'global' if route == 'host' else route}"
+            launches[key] = local[name]["launches"][route]
+        if name in SWEEP:
+            sweep[name] = threshold_rows(dg, links, name, SWEEP[name])
         del dg, g
         torch.cuda.empty_cache()
     for name, r in local.items():
-        t_l, t_g = min(r["prep_s"]["local"]), min(r["prep_s"]["host"])
-        print(f"  local-table route, {name}: prep {t_l:.4f} s against the global host "
-              f"route's {t_g:.4f} s (best of two), {t_g / t_l:.3f}x; buckets' S/D_tab "
-              f"{sorted(round(b['s_over_d'], 3) for b in r['buckets'].values())}; auto "
-              f"threshold S/D_tab <= {LOCAL_TAB_MAX_S_OVER_D}")
-    return dict(crossover=rows, launches=launches, local_route=local)
+        t = {route: statistics.median(v) for route, v in r["prep_s"].items()}
+        ratios = sorted(round(b["s_over_d"], 3) for b in r["buckets"].values())
+        for lr, gr in LOCAL_PAIRS + (("auto", "device"),):
+            if lr in t and gr in t:
+                print(f"  {lr} route, {name}: prep {t[lr]:.4f} s against the {gr} route's "
+                      f"{t[gr]:.4f} s (medians), {t[gr] / t[lr]:.3f}x; buckets' S/D_tab "
+                      f"{ratios}; auto threshold S/D_tab <= {LOCAL_TAB_MAX_S_OVER_D}")
+    return dict(crossover=rows, launches=launches, local_route=local, threshold_sweep=sweep)
+
+
+# The auto threshold's sweep: buckets S of S/D_tab 0.17 to 1 against the
+# global table's width, on the hub graph (D_tab 3,392), the arxiv-shaped
+# graph (D_tab 512) and the Cora-shaped graph (D_tab 192), 2 hops.
+SWEEP = {"hub": (1024, 2048, 3072), "arxiv-shaped": (128, 256, 512),
+         "cora-shaped": (32, 64, 128)}
+
+
+def threshold_rows(dg, links, name: str, sizes, hops: int = LARGE_HOPS) -> dict:
+    """One batch's PoS operators by the global route (``global_kernel_inputs``,
+    then ``pos_power_rows``) and by the local route
+    (``local_table_kernel_inputs``, then ``pos_power_rows``), each at its
+    own batch cap, on the host BFS's node sets of ``links`` at each S of
+    ``sizes`` (the largest subgraphs first), equal bit for bit on the links
+    both batches hold: {S/D_tab: each route's B, ms a call on the stream
+    (CUDA events) and ms a link}. What the local route saves a link in one
+    bucket, leaving out the BFS the two routes share."""
+    import torch
+
+    from s3grl_tpu_torch import native
+    from s3grl_tpu_torch.operators.pos import (
+        batch_cap, global_kernel_inputs, local_table_kernel_inputs, local_table_width,
+    )
+    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
+    from s3grl_tpu_torch.utils import timing
+
+    D, F = int(dg.nbr.shape[1]), int(dg.x.shape[1])
+
+    def global_ops(lb, nodes, mask):
+        sel, nbr, w, x, row_ids, rm = global_kernel_inputs(dg, lb, nodes, mask)
+        return pos_power_rows(sel, nbr, w, x, sign_k=3, row_ids=row_ids) * rm[:, None, :, None]
+
+    def local_ops(lb, nodes, mask):
+        sel, loc, w, x, rm = local_table_kernel_inputs(dg, lb, nodes, mask)
+        return pos_power_rows(sel, loc, w, x, sign_k=3) * rm[:, None, :, None]
+
+    out = {}
+    for S in sizes:
+        nd, size = native.khop_nodes(*dg.host_csr(), links, hops, S)
+        order = np.argsort(-np.minimum(size, S), kind="stable")
+        row, got = dict(S=S), {}
+        for route, fn, width in (("global", global_ops, D),
+                                 ("local", local_ops, local_table_width(dg, S))):
+            B = batch_cap(S, F, width, 0, 256)
+            idx = order[:B]
+            args = (torch.as_tensor(links[idx], device="cuda"),
+                    torch.as_tensor(np.where(nd[idx] >= 0, nd[idx], 0), device="cuda"),
+                    torch.as_tensor(nd[idx] >= 0, device="cuda"))
+            got[route] = fn(*args)
+            ms = timing.call_ms(lambda: fn(*args), reps=10)
+            row[route] = dict(B=B, ms=ms, ms_a_link=ms / B)
+        n = min(row["global"]["B"], row["local"]["B"])
+        if not torch.equal(got["global"][:n], got["local"][:n]):
+            raise AssertionError(f"{name} S={S}: the local and global routes' operators differ")
+        del got
+        g_, l_ = row["global"], row["local"]
+        out[f"{S / D:.3f}"] = row
+        print(f"  threshold sweep, {name} S={S} (S/D_tab {S / D:.3f}): global B={g_['B']} "
+              f"{g_['ms']:.4f} ms a call, {g_['ms_a_link']:.5f} ms a link; local B={l_['B']} "
+              f"{l_['ms']:.4f} ms, {l_['ms_a_link']:.5f} ms a link; global/local "
+              f"{g_['ms_a_link'] / l_['ms_a_link']:.3f}x; equal bit for bit")
+    return out
 
 
 def hub_graph():
@@ -1714,6 +1800,24 @@ def narrow_graph():
     return g, DeviceGraph.from_graph(g, device="cuda"), links
 
 
+def cora_graph():
+    """(Graph, DeviceGraph on the card, CORA_LINKS observed links) of a
+    power-law graph of Planetoid Cora's size (2,708 nodes, 5,278 edges;
+    ``blogcatalog_like_edges`` at exponent 0.6: max degree 173, a global
+    table 192 wide, as Cora's) with HUB_FEATURES normal features."""
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from torch_port_helpers import blogcatalog_like_edges
+
+    n = 2_708
+    ei = blogcatalog_like_edges(SEED, n=n, n_undirected=5_278, exponent=0.6)
+    rng = np.random.default_rng(SEED)
+    g = Graph(num_nodes=n, edge_index=ei,
+              x=rng.normal(size=(n, HUB_FEATURES)).astype(np.float32))
+    links = ei[:, rng.choice(ei.shape[1], CORA_LINKS, replace=False)].T.astype(np.int32)
+    return g, DeviceGraph.from_graph(g, device="cuda"), links
+
+
 def arxiv_graph():
     """(Graph, DeviceGraph on the card, HUB_LINKS observed links) of
     ``bench_torch.py``'s arxiv-shaped Chung-Lu graph (18,772 nodes, 198,110
@@ -1732,22 +1836,26 @@ def arxiv_graph():
     return g, DeviceGraph.from_graph(g, device="cuda"), links
 
 
-def hub_batch():
-    """The first batch that ``precompute_pos``' host route runs on the global
-    table in the hub graph's S = 1,024 bucket: its links in the order of the
-    route's clamped sizes, batch_cap's B of them at the global table's width,
-    as (DeviceGraph, links [B, 2], nodes [B, S], node mask [B, S]) on the
-    card."""
+def hub_batch(local: bool = False):
+    """The first batch that ``precompute_pos``' host route runs in the hub
+    graph's S = 1,024 bucket on the global table (B = 32), or with
+    ``local`` on the local tables (B = 64: batch_cap at their width,
+    ``local_table_width``): its links in the order of the route's clamped
+    sizes, as (DeviceGraph, links [B, 2], nodes [B, S], node mask [B, S]) on
+    the card. The global batch is the local one's first 32 links."""
     import inspect
 
     import torch
 
     from s3grl_tpu_torch import native
-    from s3grl_tpu_torch.operators.pos import _size_buckets, batch_cap, precompute_pos
+    from s3grl_tpu_torch.operators.pos import (
+        _size_buckets, batch_cap, local_table_width, precompute_pos,
+    )
     from s3grl_tpu_torch.sampling.extraction import pick_bucket
 
     _, dg, links = hub_graph()
-    B = batch_cap(LARGE_S, HUB_FEATURES, int(dg.nbr.shape[1]), 0, 256)
+    width = local_table_width(dg, LARGE_S) if local else int(dg.nbr.shape[1])
+    B = batch_cap(LARGE_S, HUB_FEATURES, width, 0, 256)
     buckets = _size_buckets(inspect.signature(precompute_pos).parameters["buckets"].default,
                             LARGE_S)
     nd, sizes = native.khop_nodes(*dg.host_csr(), links, LARGE_HOPS, LARGE_S)
@@ -1761,19 +1869,27 @@ def hub_batch():
 
 
 def hub_kernel_cases():
-    """``pos_power_rows`` on :func:`hub_batch`, with global ids on the
-    global table and on the local tables the card builds for it
-    (``local_table_kernel_inputs``), as (label, kwargs, node mask)."""
-    from s3grl_tpu_torch.operators.pos import global_kernel_inputs, local_table_kernel_inputs
+    """``pos_power_rows`` on the hub graph's first batches (:func:`hub_batch`):
+    the global route's (B = 32) with global ids on the global table; the
+    same 32 links on the local tables the card builds for them
+    (``local_table_kernel_inputs``), the before-and-after pair; and the local
+    route's own first batch (B = 64), as (label, kwargs, node mask)."""
+    from s3grl_tpu_torch.operators.pos import (
+        batch_cap, global_kernel_inputs, local_table_kernel_inputs,
+    )
 
-    dg, links, nodes, mask = hub_batch()
-    B, D = len(links), int(dg.nbr.shape[1])
-    sel, nbr, w, x, row_ids, _ = global_kernel_inputs(dg, links, nodes, mask)
-    lsel, loc, lw, lx, _ = local_table_kernel_inputs(dg, links, nodes, mask)
-    return [(f"hub global S={LARGE_S} D={D} R=2 B={B}",
-             dict(sel_idx=sel, nbr=nbr, w=w, subg_x=x, sign_k=3, row_ids=row_ids), mask),
-            (f"hub local S={LARGE_S} D={loc.shape[2]} R=2 B={B}",
-             dict(sel_idx=lsel, nbr=loc, w=lw, subg_x=lx, sign_k=3, row_ids=None), mask)]
+    dg, links, nodes, mask = hub_batch(local=True)
+    D = int(dg.nbr.shape[1])
+    B = batch_cap(LARGE_S, HUB_FEATURES, D, 0, 256)
+    sel, nbr, w, x, row_ids, _ = global_kernel_inputs(dg, links[:B], nodes[:B], mask[:B])
+    cases = [(f"hub global S={LARGE_S} D={D} R=2 B={B}",
+              dict(sel_idx=sel, nbr=nbr, w=w, subg_x=x, sign_k=3, row_ids=row_ids), mask[:B])]
+    for b in (B, len(links)):
+        lsel, loc, lw, lx, _ = local_table_kernel_inputs(dg, links[:b], nodes[:b], mask[:b])
+        cases.append((f"hub local S={LARGE_S} D={loc.shape[2]} R=2 B={b}",
+                      dict(sel_idx=lsel, nbr=loc, w=lw, subg_x=lx, sign_k=3, row_ids=None),
+                      mask[:b]))
+    return cases
 
 
 def phase_sampled_paths(cfg, graph, split) -> dict:

@@ -7,11 +7,9 @@
 // (node g = nodes[b, s]) the row lists, in the order of nbr[g, 0:deg[g]],
 // the local slot of every neighbor that is a member of the same subgraph,
 // with the target link removed from rows 0 and 1 (reference utils.py:78-80):
-//     loc[b, s, 0:ldeg)  = those slots,      w = 1
-//     loc[b, s, ldeg:W)  = -1,               w = 0
-//     ldeg[b, s]         = the row's local degree (entries past W are counted
-//                          but not written; the caller's W is at least the
-//                          largest local degree, ops/local_table.py).
+//     loc[b, s, 0:n)  = those slots (n, the row's local degree),  w = 1
+//     loc[b, s, n:W)  = -1,                                       w = 0
+// The caller's W is one no row's local degree passes (ops/local_table.py).
 // Rows of empty slots are all -1. Keeping the global table's order keeps the
 // order in which the global-id route's selector meets the same entries, so
 // pos_power_rows adds them in the same order and gives the same bits.
@@ -30,9 +28,7 @@
 // writes the hits compacted in order by __ballot_sync and __popc, then pads
 // the row. Nothing is added by atomics, so every run writes the same table.
 // One launch builds a batch's table: W is the width no row can pass, so no
-// count has to reach the host first. With loc null the kernel only counts:
-// chip_smoke.py times that two-pass alternative (count, then write at the
-// batch's largest degree), which took longer on the card.
+// count has to reach the host first.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,9 +59,8 @@ local_table_kernel(const int* __restrict__ nbr,                // [N, D_tab] glo
                    const unsigned char* __restrict__ node_mask,  // [B, S] member slots
                    const int* __restrict__ links,              // [B, 2] (src, dst)
                    int S, int W, int log_t,
-                   int* __restrict__ loc,                      // [B, S, W] or null (count only)
-                   float* __restrict__ w,                      // [B, S, W] or null
-                   int* __restrict__ ldeg) {                   // [B, S]
+                   int* __restrict__ loc,                      // [B, S, W]
+                   float* __restrict__ w) {                    // [B, S, W]
   extern __shared__ int smem[];
   const int T = 1 << log_t;
   int* hkeys = smem;       // [T] member ids, -1 empty
@@ -126,7 +121,7 @@ local_table_kernel(const int* __restrict__ nbr,                // [N, D_tab] glo
           }
         }
         const unsigned hit = __ballot_sync(kFull, slot >= 0);
-        if (loc != nullptr && slot >= 0) {
+        if (slot >= 0) {
           const int i = n + __popc(hit & ((1u << lane) - 1u));
           if (i < W) {
             loc[out + i] = slot;
@@ -136,12 +131,9 @@ local_table_kernel(const int* __restrict__ nbr,                // [N, D_tab] glo
         n += __popc(hit);
       }
     }
-    if (lane == 0) ldeg[static_cast<int64_t>(b) * S + s] = n;
-    if (loc != nullptr) {
-      for (int i = n + lane; i < W; i += 32) {
-        loc[out + i] = -1;
-        w[out + i] = 0.f;
-      }
+    for (int i = n + lane; i < W; i += 32) {
+      loc[out + i] = -1;
+      w[out + i] = 0.f;
     }
   }
 }
@@ -154,11 +146,11 @@ extern "C" {
 // and slots.
 int64_t s3grl_local_table_smem(int S) { return int64_t{8} << hash_log(S); }
 
-// One launch on `stream`: count only (loc and w null) or count and write
-// the table at width W. Returns the cudaError_t of the launch (0 = success).
+// One launch on `stream` that writes the table at width W. Returns the
+// cudaError_t of the launch (0 = success).
 int s3grl_local_table(const int* nbr, const int* deg, int64_t D_tab, const int* nodes,
                       const unsigned char* node_mask, const int* links, int B, int S,
-                      int W, int* loc, float* w, int* ldeg, void* stream) {
+                      int W, int* loc, float* w, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (B > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int log_t = hash_log(S);
@@ -168,7 +160,7 @@ int s3grl_local_table(const int* nbr, const int* deg, int64_t D_tab, const int* 
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kRows - 1) / kRows, B);
   local_table_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      nbr, deg, D_tab, nodes, node_mask, links, S, W, log_t, loc, w, ldeg);
+      nbr, deg, D_tab, nodes, node_mask, links, S, W, log_t, loc, w);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -101,8 +101,11 @@ HOST_EXTRACT_MIN_LE = 1e8
 # table holds at most this many entries (~256 MB), as in the JAX package.
 KHOP_TABLE_ENTRIES = 6.4e7
 # ``S3GRL_TPU_LOCAL_TAB=auto`` takes the local-table route in a bucket whose
-# S is at most this share of the global table's width (local_table_route).
-LOCAL_TAB_MAX_S_OVER_D = 0.5
+# S is at most this share of the global table's width (local_table_route):
+# chip_smoke.py's threshold sweep found the local route faster a link at
+# every point it took, up to 3,072 / 3,392 = 0.906 on the hub graph (1.0 on
+# the arxiv-shaped graph, 0.667 on the Cora-shaped one); 0.906 rounded up.
+LOCAL_TAB_MAX_S_OVER_D = 0.91
 
 
 def _ccn_select(nbr0, nbr1, node_mask, strategy: str, max_ccn: int, R: int):
@@ -204,9 +207,8 @@ def local_table_kernel_inputs(
     :func:`global_kernel_inputs`: the batch's local table built on the card
     (``ops/local_table.local_table``, at :func:`local_table_width`), then
     :func:`local_kernel_inputs`' (sel_idx, nbr, w, subg_x, row_mask) on it."""
-    loc, w, _, _ = local_table(dg.nbr, dg.degrees(), nodes.to(torch.int32).contiguous(),
-                               node_mask.contiguous(), links,
-                               local_table_width(dg, int(nodes.shape[1])))
+    loc, w = local_table(dg.nbr, dg.degrees(), nodes.to(torch.int32).contiguous(),
+                         node_mask.contiguous(), links, local_table_width(dg, int(nodes.shape[1])))
     return _slot_kernel_inputs(dg.x, nodes, node_mask, loc, w, max_ccn=max_ccn,
                                strategy=strategy)
 
@@ -738,11 +740,11 @@ def pos_plan(
     batches = []
     for bucket in np.unique(bucket_of):
         idx_all = order[bucket_of == bucket]
-        # A local bucket's tables are at most min(bucket, D_tab) wide (JAX
-        # pos.py:775-797).
+        # A local bucket's batch is sized by its tables' width, about
+        # min(bucket, D_tab) (JAX pos.py:775-797).
         local = not scaled and local_table_route(int(bucket), D_tab, sampled=sampled)
-        cap = batch_cap(int(bucket), F, min(int(bucket), D_tab) if local else D_tab, eff_ccn,
-                        batch_size)
+        width = local_table_width(dg, int(bucket)) if local else D_tab
+        cap = batch_cap(int(bucket), F, width, eff_ccn, batch_size)
         cap = -(-cap // batch_multiple) * batch_multiple
         batches += [(int(bucket), idx_all[start : start + cap])
                     for start in range(0, len(idx_all), cap)]

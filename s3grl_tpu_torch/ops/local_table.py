@@ -52,8 +52,7 @@ def local_table_reference(
 ):
     """Plain torch version of :func:`local_table`, on a slot map (the idea
     of ``sampling/extraction.assemble_local_structure``) and a stable
-    compaction: (loc [B, S, width] int32, w [B, S, width] float32, ldeg
-    [B, S] int32, mdeg [B] int32)."""
+    compaction: (loc [B, S, width] int32, w [B, S, width] float32)."""
     B, S = nodes.shape
     N, D = nbr.shape
     dev = nbr.device
@@ -76,8 +75,6 @@ def local_table_reference(
     hit[:, 1] &= gnbr[:, 1] != links[:, 0:1]
 
     rank = torch.cumsum(hit, dim=2)
-    ldeg = rank[:, :, -1]
-    mdeg = ldeg.amax(dim=1)
     W = width
     # Each hit goes to its rank's column, the rest (and any past the width)
     # to a column dropped after.
@@ -85,40 +82,19 @@ def local_table_reference(
     loc = torch.full((B, S, W + 1), -1, dtype=torch.int64, device=dev)
     loc.scatter_(2, col, torch.where(hit, lj1 - 1, torch.full_like(lj1, -1)))
     loc = loc[:, :, :W].to(torch.int32).contiguous()
-    return loc, (loc >= 0).to(torch.float32), ldeg.to(torch.int32), mdeg.to(torch.int32)
+    return loc, (loc >= 0).to(torch.float32)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("local_table")
     if not getattr(lib, "_s3grl_typed", False):
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.s3grl_local_table.argtypes = [p, p, i64, p, p, p, i32, i32, i32, p, p, p, p]
+        lib.s3grl_local_table.argtypes = [p, p, i64, p, p, p, i32, i32, i32, p, p, p]
         lib.s3grl_local_table.restype = i32
         lib.s3grl_local_table_error_string.argtypes = [i32]
         lib.s3grl_local_table_error_string.restype = ctypes.c_char_p
         lib._s3grl_typed = True
     return lib
-
-
-def launch(nbr, deg, nodes, node_mask, links, width: int, ldeg, loc=None, w=None) -> None:
-    """One launch of the kernel on the current stream: count each row's local
-    degree into ``ldeg`` [B, S] int32, and with ``loc`` and ``w`` [B, S,
-    width] also write the table (entries past ``width`` are counted, not
-    written); without them it only counts (the two-pass alternative that
-    ``chip_smoke.py`` times). Arguments as :func:`local_table` checks them;
-    raises if the launch fails."""
-    lib = _lib()
-    B, S = nodes.shape
-    err = lib.s3grl_local_table(
-        nbr.data_ptr(), deg.data_ptr(), nbr.shape[1], nodes.data_ptr(),
-        node_mask.data_ptr(), links.data_ptr(), B, S, width,
-        loc.data_ptr() if loc is not None else None,
-        w.data_ptr() if w is not None else None, ldeg.data_ptr(),
-        torch.cuda.current_stream(nbr.device).cuda_stream,
-    )
-    if err != 0:
-        msg = lib.s3grl_local_table_error_string(err).decode()
-        raise RuntimeError(f"local_table launch failed: {msg} ({err})")
 
 
 def local_table(
@@ -130,10 +106,8 @@ def local_table(
     width: int,
 ):
     """(loc [B, S, width] int32 local slots, -1 on padding; w [B, S, width]
-    float32, 1 where loc >= 0; ldeg [B, S] int32 each row's local degree;
-    mdeg [B] int32 each subgraph's largest). ``width`` must be at least the
-    largest local degree: entries past it are counted in ``ldeg`` but not
-    written.
+    float32, 1 where loc >= 0). ``width`` must be at least the largest
+    local degree: entries past it are not written.
 
     CPU tensors go to :func:`local_table_reference`. CUDA tensors launch
     the kernel once on the current stream; anything it does not take
@@ -154,12 +128,19 @@ def local_table(
     _build.check_arg(links, "links", torch.int32, (B, 2), dev)
     if min(S, D, width) < 1:
         raise ValueError(f"empty shape: S={S}, D={D}, width={width}")
-    ldeg = torch.empty((B, S), dtype=torch.int32, device=dev)
     loc = torch.empty((B, S, width), dtype=torch.int32, device=dev)
     w = torch.empty((B, S, width), dtype=torch.float32, device=dev)
-    launch(nbr, deg, nodes, node_mask, links, width, ldeg, loc, w)
+    lib = _lib()
+    err = lib.s3grl_local_table(
+        nbr.data_ptr(), deg.data_ptr(), D, nodes.data_ptr(), node_mask.data_ptr(),
+        links.data_ptr(), B, S, width, loc.data_ptr(), w.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.s3grl_local_table_error_string(err).decode()
+        raise RuntimeError(f"local_table launch failed: {msg} ({err})")
     local_table.launches += 1
-    return loc, w, ldeg, ldeg.amax(dim=1)
+    return loc, w
 
 
 local_table.launches = 0
@@ -180,7 +161,7 @@ def work(
     Reads: the node sets (ids and mask) and the links; each member row's
     degree and its live table entries (``count`` "live"), or its whole
     ``D_tab``-wide row ("padded"). Writes: the table and its weights at
-    ``width`` and the local degrees, each once.
+    ``width``, once.
     """
     B, S = nodes.shape
     members = node_mask.reshape(-1)
@@ -191,5 +172,5 @@ def work(
         entries = rows * int(nbr.shape[1])
     else:
         raise ValueError(f"count must be live or padded, got {count!r}")
-    n_bytes = 5 * B * S + 8 * B + 4 * rows + 4 * entries + 8 * B * S * width + 4 * B * S
+    n_bytes = 5 * B * S + 8 * B + 4 * rows + 4 * entries + 8 * B * S * width
     return Work(n_bytes=float(n_bytes), flops=0.0)

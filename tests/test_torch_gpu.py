@@ -673,8 +673,8 @@ def _card_batches(dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("which", ["S256", "hub"])
 def test_local_table_kernel_equals_plain_version(which):
-    """The card-built local table, its weights and degrees, equal to the
-    plain version's bit for bit (integer output)."""
+    """The card-built local table and its weights equal to the plain
+    version's bit for bit (integer output), at the route's width."""
     from s3grl_tpu_torch.operators.pos import local_table_width
     from s3grl_tpu_torch.ops.local_table import local_table, local_table_reference
 
@@ -688,7 +688,8 @@ def test_local_table_kernel_equals_plain_version(which):
     assert local_table.launches == before + 1
     for a, b in zip(got, local_table_reference(*args)):
         assert a.dtype == b.dtype and torch.equal(a, b)
-    assert int(got[3].max()) <= got[0].shape[2] == args[-1]
+    assert got[0].shape[2] == args[-1]
+    assert int((got[0] >= 0).sum(dim=2).max()) <= args[-1]
 
 
 @pytest.mark.gpu

@@ -105,8 +105,9 @@ def test_local_table_reference_equals_the_native_tables(graph, hops, S, jax_nati
     d_cap = min(S, int(td.nbr.shape[1]))
     W = tpos.local_table_width(td, S)
     assert not td.repeats_a_neighbor() and W == lt.table_width(d_cap)
-    loc, w, ldeg, mdeg = lt.local_table_reference(td.nbr, td.degrees(), nodes, mask,
-                                                  torch.as_tensor(links), W)
+    loc, w = lt.local_table_reference(td.nbr, td.degrees(), nodes, mask,
+                                      torch.as_tensor(links), W)
+    mdeg = (loc >= 0).sum(dim=2, dtype=torch.int32).amax(dim=1)
     assert loc.shape[2] == W and int(mdeg.max()) <= d_cap
     row_ptr, col_idx = td.host_csr()
     for core in (native, jax_native):
@@ -121,8 +122,6 @@ def test_local_table_reference_equals_the_native_tables(graph, hops, S, jax_nati
         np.testing.assert_array_equal(h_loc[:, :, :k], loc[:, :, :k].numpy())
         assert (loc[:, :, k:] == -1).all()
     assert torch.equal(w, (loc >= 0).float())
-    assert torch.equal(ldeg, (loc >= 0).sum(dim=2, dtype=torch.int32))
-    assert torch.equal(mdeg, ldeg.amax(dim=1))
     assert not (loc[~mask] >= 0).any()  # rows of empty slots are empty
 
 
@@ -132,8 +131,7 @@ def test_local_table_keeps_duplicates_skips_self_padding_and_drops_the_link():
     self-padding past a row's degree is never read, the target link leaves
     rows 0 and 1 only, and a repeated member id keeps its last slot; each
     row against a per-row Python oracle, and the wrapper on CPU tensors runs
-    the plain version. Entries past a narrower width are counted, not
-    written."""
+    the plain version. Entries past a narrower width are not written."""
     ei = np.array([[0, 1, 0, 1, 1, 2, 2, 3, 2, 2, 3, 4],
                    [1, 0, 2, 2, 2, 1, 1, 2, 2, 3, 4, 3]], dtype=np.int32)
     g = tgraph.Graph(num_nodes=6, edge_index=ei, x=np.ones((6, 2), np.float32))
@@ -144,12 +142,12 @@ def test_local_table_keeps_duplicates_skips_self_padding_and_drops_the_link():
     assert td.repeats_a_neighbor() and tpos.local_table_width(td, 6) == lt.table_width(8)
     width = tpos.local_table_width(td, 6)
     got = lt.local_table(td.nbr, td.degrees(), nodes, mask, links, width)
-    loc, w, ldeg, mdeg = lt.local_table_reference(td.nbr, td.degrees(), nodes, mask, links,
-                                                  width)
-    for a, b in zip(got, (loc, w, ldeg, mdeg)):
+    loc, w = lt.local_table_reference(td.nbr, td.degrees(), nodes, mask, links, width)
+    for a, b in zip(got, (loc, w)):
         assert torch.equal(a, b)
     cut = lt.local_table_reference(td.nbr, td.degrees(), nodes, mask, links, 2)
-    assert torch.equal(cut[0], loc[:, :, :2]) and torch.equal(cut[2], ldeg)
+    assert torch.equal(cut[0], loc[:, :, :2]) and torch.equal(cut[1], w[:, :, :2])
+    ldeg = (loc >= 0).sum(dim=2)
     rp, ci, _ = g.csr
     for b in range(2):
         slot = {int(nodes[b, j]): j for j in range(6) if mask[b, j]}  # last slot wins
@@ -164,7 +162,7 @@ def test_local_table_keeps_duplicates_skips_self_padding_and_drops_the_link():
             assert row[:len(want)] == want and all(v == -1 for v in row[len(want):]), (b, s)
             assert int(ldeg[b, s]) == len(want)
     assert loc[0, 2].tolist()[:4] == [1, 1, 2, 3]  # node 2: node 1 twice, itself, node 3
-    assert loc.shape[2] == lt.WIDTH_MULTIPLE and mdeg.tolist() == [4, 4]
+    assert loc.shape[2] == lt.WIDTH_MULTIPLE and ldeg.amax(dim=1).tolist() == [4, 4]
 
 
 def test_table_width_rounds_up_to_the_multiple():
@@ -185,7 +183,7 @@ def test_local_table_work_counts_bytes_by_brute_force(count):
             if mask[b, s]:
                 g_id = int(nodes[b, s])
                 read += 4 + 4 * (deg[g_id] if count == "live" else td.nbr.shape[1])
-    want = 5 * B * S + 8 * B + read + 8 * B * S * W + 4 * B * S
+    want = 5 * B * S + 8 * B + read + 8 * B * S * W
     got = lt.work(td.nbr, td.degrees(), nodes, mask, W, count=count)
     assert got.n_bytes == want and got.flops == 0.0
 
@@ -295,23 +293,36 @@ def test_local_table_route_modes(monkeypatch):
     assert tpos.local_table_route(4096, 32) and not tpos.local_table_route(32, D, sampled=True)
 
 
-def test_a_local_bucket_is_sized_by_its_local_width(monkeypatch):
-    """pos_plan's batch cap: ``min(bucket, D_tab)`` in place of ``D_tab`` in a
-    local bucket (JAX pos.py:775-797)."""
+@pytest.mark.parametrize("repeats", [False, True], ids=["simple", "repeated-edge"])
+def test_a_local_bucket_is_sized_by_its_local_width(monkeypatch, repeats):
+    """pos_plan's batch cap: the local tables' width (``local_table_width``,
+    about ``min(bucket, D_tab)``; ``D_tab`` where the graph repeats an edge)
+    in place of ``D_tab`` in a local bucket (JAX pos.py:775-797)."""
     rng = np.random.default_rng(2)
-    n = 400
-    ei = random_edges(rng, n=n, e=6_000)
+    ei = _hub_narrow_edges()
+    if repeats:
+        ei = np.concatenate([ei, ei[:, :1]], axis=1)
+    n = int(ei.max()) + 1
     td = text.DeviceGraph.from_graph(
         tgraph.Graph(num_nodes=n, edge_index=ei, x=np.ones((n, 3), np.float32)), device="cpu")
     D = int(td.nbr.shape[1])
-    links = rng.integers(0, n, (64, 2)).astype(np.int32)
+    assert td.repeats_a_neighbor() == repeats
+    links = rng.integers(1, n, (256, 2)).astype(np.int32)
     kw = dict(num_hops=1, sign_k=2, buckets=(16, 32, 64), max_subgraph_nodes=64,
-              batch_size=4096)
-    for mode, width in (("0", lambda b: D), ("1", lambda b: min(b, D))):
+              batch_size=2**20)
+    monkeypatch.setattr(tpos, "ELEM_BUDGET", 2**15)  # batches of 8 to 64 links
+    caps = {}
+    for mode, width in (("0", lambda b: D), ("1", lambda b: tpos.local_table_width(td, b))):
         monkeypatch.setenv("S3GRL_TPU_LOCAL_TAB", mode)
+        sizes = {}
         for bucket, idx in tpos.pos_plan(td, links, **kw).batches:
-            cap = tpos.batch_cap(bucket, 3, width(bucket), 0, 4096)
-            assert len(idx) <= cap
+            sizes.setdefault(bucket, []).append(len(idx))
+        for bucket, lens in sizes.items():
+            cap = tpos.batch_cap(bucket, 3, width(bucket), 0, 2**20)
+            assert max(lens) <= cap and (len(lens) == 1 or lens[0] == cap), (mode, bucket)
+        caps[mode] = sizes[16][0]
+    assert (caps["1"] > caps["0"]) != repeats, caps
+    assert (tpos.local_table_width(td, 32) == D) == repeats
 
 
 def test_auto_leaves_the_main_path_on_the_global_route(monkeypatch):
