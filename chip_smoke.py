@@ -26,9 +26,12 @@ non-zero without the final line:
    graph's first global batch (B = 32) on the global table, on the local
    tables the card builds for the same links, and on the local route's own
    first batch (B = 64), whose outputs must equal the global row's bit for
-   bit; then ``local_table`` against its plain version, bit for bit, on the
-   main path's S = 256 batch and the local route's first hub batch, with
-   its device time and its bound (``phase_local_table``);
+   bit, and equal to the same call with the table's weights spelled out
+   (``w = loc >= 0``); then ``local_table`` (slots only, no weight array)
+   against its plain version, bit for bit, on the main path's S = 256 batch
+   and the local route's first hub batch, with its device time and its
+   bound, and its time at each of ``ROWS_PER_BLOCK_SWEEP`` rows a block
+   (``phase_local_table``);
 4. end to end: ``run_sgrl_learning`` on a synthetic USAir-shaped graph
    with the bench.py config (USAir, sign_k 3, 2 hops, degree features,
    hidden 256, batch 32, lr 1e-4), 5 epochs, seed 1, once per sign type
@@ -539,6 +542,12 @@ def phase_kernels(cfg, graph, split, power_limit: str):
                 f"pos_power_rows disagrees with its plain version at {label}: "
                 f"max abs err {max_abs} (tolerance rtol {TOL['rtol']}, atol {TOL['atol']})"
             )
+        spelled_kw = None
+        if kw["w"] is None:  # a card-built local table: no weight array
+            spelled_kw = {**kw, "w": (kw["nbr"] >= 0).float()}
+            if not torch.equal(got, pos_power_rows(**spelled_kw)):
+                raise AssertionError(f"pos_power_rows with w=None differs from w = loc >= 0 "
+                                     f"at {label}")
         # Phase 1 alone: the selector rows H against their plain version.
         sel_kw = {k: kw[k] for k in ("sel_idx", "nbr", "w", "sign_k", "row_ids")}
         h_err = float((pos_selector_rows(**sel_kw)
@@ -559,6 +568,12 @@ def phase_kernels(cfg, graph, split, power_limit: str):
             kw["sel_idx"].shape[1])) for k in (kw["sign_k"], 0))
         plain_ms = timing.call_ms(lambda: pos_power_rows_reference(**kw), reps=3)
         bound_ms, by, n_bytes, flops, nnz, padded_ms, degree_ms = bound_of(kw, node_mask)
+        spelled = ""
+        if spelled_kw is not None:  # the same call reading a weight array
+            spelled_ms = timing.graph_ms(lambda: pos_power_rows(**spelled_kw))
+            spelled = (f"; with w = loc >= 0 spelled out (the same bits) {spelled_ms:.4f} ms, "
+                       f"bound {f4(bound_of(spelled_kw, node_mask)[0])} ms")
+            del spelled_kw
         members = int(node_mask.sum())
         cap = lib.s3grl_pos_list_cap(S, Dk)
         rows[label] = dict(max_abs_err=max_abs, ms=ms, device_ms=device_ms, host_ms=host_ms,
@@ -577,7 +592,8 @@ def phase_kernels(cfg, graph, split, power_limit: str):
               f"{f4(degree_ms)} ms over the member rows' live entries) share of bound "
               f"{f4(ratio(bound_ms, device_ms))}; resolved entries {int(nnz.sum())} "
               f"(per subgraph mean {nnz.mean():.1f}, max {int(nnz.max())}; "
-              f"{int((nnz > cap).sum())} of {B} over the {cap}-entry shared-memory list)")
+              f"{int((nnz > cap).sum())} of {B} over the {cap}-entry shared-memory list)"
+              f"{spelled}")
     want = next(v for k, v in hub_out.items() if k.startswith("hub global"))
     for label, got in hub_out.items():
         if label.startswith("hub local") and not torch.equal(got[:len(want)], want):
@@ -609,6 +625,12 @@ def local_table_batches(cfg, graph, split) -> dict:
             f"hub S={LARGE_S} B={len(hub[1])}": hub}
 
 
+# Rows of one subgraph a block of ``local_table`` builds, swept in
+# ``phase_local_table`` (each block hashes its subgraph's members once); the
+# wrapper takes ``ops/local_table.rows_per_block``'s.
+ROWS_PER_BLOCK_SWEEP = (8, 16, 32, 64, 128, 256)
+
+
 def phase_local_table(cfg, graph, split, power_limit: str) -> dict:
     """``local_table`` against ``local_table_reference`` on the card, equal
     bit for bit (integer output), on :func:`local_table_batches`, at the
@@ -616,7 +638,8 @@ def phase_local_table(cfg, graph, split, power_limit: str) -> dict:
     graph replay of its one launch, its time a call on the stream
     (``call_ms``), the plain version's time and the bound of
     ``local_table.work`` (the member rows' live entries; over whole rows of
-    the global table beside it)."""
+    the global table beside it); then, at each of ROWS_PER_BLOCK_SWEEP, the
+    table (equal bit for bit again) and its device time."""
     import torch
 
     from s3grl_tpu_torch.operators.pos import local_table_width
@@ -635,11 +658,9 @@ def phase_local_table(cfg, graph, split, power_limit: str) -> dict:
         got = lt.local_table(*args, W)
         want = lt.local_table_reference(*args, W)
         torch.cuda.synchronize()
-        for a, b, name in zip(got, want, ("loc", "w")):
-            if a.dtype != b.dtype or not torch.equal(a, b):
-                raise AssertionError(f"local_table's {name} differs from its plain version "
-                                     f"at {label}")
-        mdeg = (got[0] >= 0).sum(dim=2).amax(dim=1).cpu().numpy()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"local_table differs from its plain version at {label}")
+        mdeg = (got >= 0).sum(dim=2).amax(dim=1).cpu().numpy()
         device_ms = timing.graph_ms(lambda: lt.local_table(*args, W))
         ms = timing.call_ms(lambda: lt.local_table(*args, W))
         plain_ms = timing.call_ms(lambda: lt.local_table_reference(*args, W), reps=3)
@@ -647,16 +668,31 @@ def phase_local_table(cfg, graph, split, power_limit: str) -> dict:
         padded = lt.work(dg.nbr, dg.degrees(), nodes, mask, W, count="padded")
         b_ms, by = bound_ms(live, rates)
         p_ms = bound_ms(padded, rates)[0]
+        sweep = {}
+        rule = lt.rows_per_block
+        kept = rule(int(nodes.shape[1]), W)
+        try:
+            for r in ROWS_PER_BLOCK_SWEEP:
+                lt.rows_per_block = lambda S, width, r=r: r
+                if not torch.equal(lt.local_table(*args, W), want):
+                    raise AssertionError(f"local_table at {r} rows a block differs from its "
+                                         f"plain version at {label}")
+                sweep[r] = timing.graph_ms(lambda: lt.local_table(*args, W))
+        finally:
+            lt.rows_per_block = rule
         rows[label] = dict(max_abs_err=0.0, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                            bound_ms=b_ms, bound_by=by, padded_bound_ms=p_ms, width=W,
                            n_bytes=live.n_bytes, mdeg_max=int(mdeg.max()),
-                           mdeg_mean=float(mdeg.mean()))
+                           mdeg_mean=float(mdeg.mean()), rows_per_block=kept,
+                           rows_per_block_ms=sweep)
         print(f"  {label} D_tab={D}: equal bit for bit; width {W} (mdeg mean "
               f"{mdeg.mean():.1f}, max {int(mdeg.max())}); kernel {device_ms:.4f} ms device "
               f"by graph replay, {ms:.4f} ms a call on the stream; plain {plain_ms:.4f} ms; "
               f"bound {f4(b_ms)} ms ({by}: {live.n_bytes / 1e6:.1f} MB; "
               f"{f4(p_ms)} ms reading whole global rows) share of bound "
-              f"{f4(ratio(b_ms, device_ms))}")
+              f"{f4(ratio(b_ms, device_ms))}; {kept} rows a block; device ms by rows a "
+              f"block (equal bit for bit at each): "
+              + ", ".join(f"{r} {t:.4f} ({f4(ratio(b_ms, t))})" for r, t in sweep.items()))
     return rows
 
 
@@ -1559,7 +1595,7 @@ def local_widths(dg, links, hops: int) -> dict:
         loc = local_table(dg.nbr, dg.degrees(),
                           torch.as_tensor(np.where(nd >= 0, nd, 0), device="cuda"),
                           torch.as_tensor(nd >= 0, device="cuda"),
-                          torch.as_tensor(links[idx], device="cuda"), width)[0]
+                          torch.as_tensor(links[idx], device="cuda"), width)
         mdeg = (loc >= 0).sum(dim=2).max()
         n_b, n_l, _, degs = out.get(bucket, (0, 0, width, []))
         out[bucket] = (n_b + 1, n_l + len(idx), width, degs + [int(mdeg.max())])

@@ -5,6 +5,9 @@
 // where A is densified from a padded neighbor table,
 //     A[j, s] += w[s, d]  wherever  nbr[s, d] == row_ids[j],
 // and Â = diag(rowdeg)^-1/2 A diag(coldeg)^-1/2 (a zero degree gives 0).
+// On a table of local slots (row_ids null) w may be null: w[s, d] = 1 where
+// nbr[s, d] >= 0 and 0 elsewhere, the table local_table.cu writes, so no
+// weight array is read.
 //
 // The TPU kernel keeps a dense [S, S] plane on chip. Here nothing is
 // densified: the selected rows are carried as H_k = H_{k-1} Â in the gather
@@ -119,20 +122,35 @@ __host__ __device__ __forceinline__ int stage_width(int D) {
 }
 
 // Weights and slots (-1 where absent) of the kChunks·32 entries of one
-// table row from column d0, lane `lane` taking every 32nd.
+// table row from column d0, lane `lane` taking every 32nd. A null `wrow`
+// (local slots only) weighs 1 where the slot is >= 0 and 0 elsewhere: the
+// table of local_table.cu, which carries no weight array.
 __device__ __forceinline__ void load_chunks(const int* nrow, const float* wrow, int D, int d0,
                                             int lane, const int* hkeys, const int* hslots,
                                             int S, bool has_ids, int log_t,
                                             float (&wt)[kChunks], int (&l)[kChunks]) {
   int id[kChunks];
   bool live[kChunks];
+  // All kChunks loads of each array are issued before any is used: a
+  // branch between one chunk's use and the next chunk's load would wait on
+  // each load in turn.
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     const int d = d0 + c * 32 + lane;
-    wt[c] = d < D ? wrow[d] : 0.f;
     id[c] = d < D ? nrow[d] : -1;
-    live[c] = wt[c] != 0.f;
   }
+  if (wrow != nullptr) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int d = d0 + c * 32 + lane;
+      wt[c] = d < D ? wrow[d] : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) wt[c] = id[c] >= 0 ? 1.f : 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) live[c] = wt[c] != 0.f;
   resolve(id, live, hkeys, hslots, S, has_ids, log_t, l);
 }
 
@@ -152,7 +170,7 @@ template <int kRowChunk>
 __global__ void __launch_bounds__(kThreads1)
 pos_selector_rows_kernel(const int* __restrict__ sel,      // [B, R]
                          const int* __restrict__ nbr,      // [B, S, D]
-                         const float* __restrict__ w,      // [B, S, D]
+                         const float* __restrict__ w,      // [B, S, D], or null (local slots)
                          const int* __restrict__ row_ids,  // [B, S] or null (slot iota)
                          float* h,                         // [B, S, KRP], read back
                          int2* __restrict__ spill_all,     // [B, S*D - cap] or null
@@ -182,7 +200,7 @@ pos_selector_rows_kernel(const int* __restrict__ sel,      // [B, R]
 
   const int64_t tab = static_cast<int64_t>(b) * S * D;
   const int* nbr_b = nbr + tab;
-  const float* w_b = w + tab;
+  const float* w_b = w != nullptr ? w + tab : nullptr;
   int2* spill = spill_all != nullptr
                     ? spill_all + static_cast<int64_t>(b) * (static_cast<int64_t>(S) * D - cap)
                     : nullptr;
@@ -218,7 +236,7 @@ pos_selector_rows_kernel(const int* __restrict__ sel,      // [B, R]
     int n = 0;
     float cd = 0.f;
     const int* nrow = nbr_b + static_cast<int64_t>(s) * D;
-    const float* wrow = w_b + static_cast<int64_t>(s) * D;
+    const float* wrow = w_b != nullptr ? w_b + static_cast<int64_t>(s) * D : nullptr;
     for (int d0 = 0; d0 < D; d0 += 32 * kChunks) {
       int l[kChunks];
       float wt[kChunks];
@@ -604,7 +622,8 @@ int64_t s3grl_pos_selector_smem(int S, int D, int R, int has_ids, int cap, int h
   return bytes;
 }
 
-// Phase 1 on `stream`; returns the cudaError_t of the launch (0 = success).
+// Phase 1 on `stream` (w may be null where row_ids is: weight 1 where the
+// slot is >= 0); returns the cudaError_t of the launch (0 = success).
 int s3grl_pos_selector_rows(const int* sel, const int* nbr, const float* w,
                             const int* row_ids, float* h, void* spill, int B, int S,
                             int D, int R, int K, int cap, int h_in_smem,

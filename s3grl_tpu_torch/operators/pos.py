@@ -88,9 +88,10 @@ from s3grl_tpu_torch.sampling.extraction import (
 )
 from s3grl_tpu_torch.sampling.random_walk import extract_rw_subgraphs
 
-# Dataset footprint limit before the bf16 and host tiers, as in the JAX
-# package (pos.py:818): the tiers change the dataset's dtype or CCN width,
-# so the port keeps the same limit to produce the same datasets.
+# Dataset footprint limit before the bf16 and host tiers when
+# ``S3GRL_TPU_DEVICE_DS_BYTES`` is unset, as in the JAX package (pos.py:818):
+# the tiers change the dataset's dtype or CCN width, so the port reads the
+# same variable with the same default to produce the same datasets.
 DEVICE_DS_BYTES = 3.5e9
 # f32 elements per transient [B, S, *] tensor, bounding the batch per bucket.
 ELEM_BUDGET = 256_000_000
@@ -140,11 +141,12 @@ def _ccn_select(nbr0, nbr1, node_mask, strategy: str, max_ccn: int, R: int):
     return sel_idx, row_mask
 
 
-def _slot_neighbors(loc_row: torch.Tensor, w_row: torch.Tensor, S: int) -> torch.Tensor:
+def _slot_neighbors(loc_row: torch.Tensor, w_row: Optional[torch.Tensor], S: int) -> torch.Tensor:
     """[B, S] bool: the slots that a row of a local table [B, D] names with
-    a nonzero weight."""
+    a nonzero weight (``w_row`` None: every slot >= 0)."""
     B = loc_row.shape[0]
-    idx = torch.where(w_row > 0, loc_row.long(), torch.full_like(loc_row, S, dtype=torch.long))
+    named = loc_row >= 0 if w_row is None else w_row > 0
+    idx = torch.where(named, loc_row.long(), torch.full_like(loc_row, S, dtype=torch.long))
     hit = torch.zeros((B, S + 1), dtype=torch.bool, device=loc_row.device)
     return hit.scatter_(1, idx, True)[:, :S]
 
@@ -153,8 +155,9 @@ def _slot_kernel_inputs(x_global, nodes, node_mask, nbr_local, nbr_w, *, max_ccn
     """``pos_power_rows``' inputs in its local-slot mode for node sets
     [B, S] and their local table [B, S, D]: (sel_idx [B, R] i32, nbr_local,
     nbr_w, subg_x [B, S, F+1] f32, row_mask [B, R] bool), R = 2 + max_ccn.
-    CCN membership compares the targets' rows with the slots. Invalid CCN
-    slots point at row 0; the row mask zeroes them afterwards."""
+    ``nbr_w`` None weighs 1 every slot >= 0. CCN membership compares the
+    targets' rows with the slots. Invalid CCN slots point at row 0; the row
+    mask zeroes them afterwards."""
     B, S = nodes.shape
     dev = nodes.device
     x_sub = x_global[nodes.long()] * node_mask[:, :, None].to(torch.float32)
@@ -163,8 +166,9 @@ def _slot_kernel_inputs(x_global, nodes, node_mask, nbr_local, nbr_w, *, max_ccn
     subg_x = torch.cat([ind, x_sub], dim=-1)  # [B, S, F+1]
     nbr0 = nbr1 = None
     if max_ccn > 0:
-        nbr0 = _slot_neighbors(nbr_local[:, 0], nbr_w[:, 0], S)
-        nbr1 = _slot_neighbors(nbr_local[:, 1], nbr_w[:, 1], S)
+        w0, w1 = (None, None) if nbr_w is None else (nbr_w[:, 0], nbr_w[:, 1])
+        nbr0 = _slot_neighbors(nbr_local[:, 0], w0, S)
+        nbr1 = _slot_neighbors(nbr_local[:, 1], w1, S)
     sel_idx, row_mask = _ccn_select(nbr0, nbr1, node_mask, strategy, max_ccn, 2 + max_ccn)
     return sel_idx, nbr_local, nbr_w, subg_x, row_mask
 
@@ -206,10 +210,12 @@ def local_table_kernel_inputs(
     """The kernel's inputs on the local-table route, beside
     :func:`global_kernel_inputs`: the batch's local table built on the card
     (``ops/local_table.local_table``, at :func:`local_table_width`), then
-    :func:`local_kernel_inputs`' (sel_idx, nbr, w, subg_x, row_mask) on it."""
-    loc, w = local_table(dg.nbr, dg.degrees(), nodes.to(torch.int32).contiguous(),
-                         node_mask.contiguous(), links, local_table_width(dg, int(nodes.shape[1])))
-    return _slot_kernel_inputs(dg.x, nodes, node_mask, loc, w, max_ccn=max_ccn,
+    :func:`local_kernel_inputs`' (sel_idx, nbr, w, subg_x, row_mask) on it,
+    with ``w`` None: the table carries no weights (1 where its slot is
+    >= 0)."""
+    loc = local_table(dg.nbr, dg.degrees(), nodes.to(torch.int32).contiguous(),
+                      node_mask.contiguous(), links, local_table_width(dg, int(nodes.shape[1])))
+    return _slot_kernel_inputs(dg.x, nodes, node_mask, loc, None, max_ccn=max_ccn,
                                strategy=strategy)
 
 
@@ -227,13 +233,15 @@ def pos_operators_local(
     ``pos_operators_local``): the semantics of :func:`pos_operators_global`
     (the target link already removed from the table), with the kernel in
     its local-slot mode at the table's width. Weights ``(loc >= 0) &
-    node_mask``. Returns (xs [B, K+1, R, F+1] f32, row_mask [B, R])."""
-    loc = loc_nbr.to(torch.int32).contiguous()
-    w = ((loc >= 0) & node_mask[:, :, None]).to(torch.float32)
-    sel_idx, loc, w, subg_x, row_mask = _slot_kernel_inputs(
-        dg.x, nodes, node_mask, loc, w, max_ccn=max_ccn, strategy=strategy
+    node_mask``, as the JAX package derives them: the rows of empty slots
+    are cleared to -1, and the kernel takes ``w=None`` (weight 1 where the
+    slot is >= 0), so no weight array is built. Returns (xs [B, K+1, R, F+1]
+    f32, row_mask [B, R])."""
+    loc = torch.where(node_mask[:, :, None], loc_nbr, -1).to(torch.int32).contiguous()
+    sel_idx, loc, _, subg_x, row_mask = _slot_kernel_inputs(
+        dg.x, nodes, node_mask, loc, None, max_ccn=max_ccn, strategy=strategy
     )
-    xs = pos_power_rows(sel_idx, loc, w, subg_x, sign_k=sign_k)
+    xs = pos_power_rows(sel_idx, loc, None, subg_x, sign_k=sign_k)
     return xs * row_mask[:, None, :, None], row_mask
 
 
@@ -561,10 +569,10 @@ def _extract_and_operate(
         )
     if local_table_route(max_nodes, int(dg.nbr.shape[1]),
                          sampled=samples(ratio_per_hop, max_nodes_per_hop)):
-        sel_idx, loc, w, subg_x, row_mask = local_table_kernel_inputs(
+        sel_idx, loc, _, subg_x, row_mask = local_table_kernel_inputs(
             dg, links, nodes, node_mask, max_ccn=max_ccn, strategy=strategy
         )
-        xs = pos_power_rows(sel_idx, loc, w, subg_x, sign_k=sign_k)
+        xs = pos_power_rows(sel_idx, loc, None, subg_x, sign_k=sign_k)
         return xs * row_mask[:, None, :, None], row_mask
     return pos_operators_global(dg, links, nodes, node_mask, sign_k=sign_k, max_ccn=max_ccn,
                                 strategy=strategy)
@@ -608,24 +616,27 @@ def _storage_tier(L: int, sign_k: int, F: int, eff_ccn: int, dev: torch.device):
     on the device, else bf16 on the device (storage only; compute stays
     f32), with the CCN pad halved down the power-of-two ladder first if even
     bf16 does not fit; f32 on the host at the full width if the halved bf16
-    tier exceeds 2x budget."""
+    tier exceeds 2x budget. The budget is ``S3GRL_TPU_DEVICE_DS_BYTES``,
+    read at each call, else :data:`DEVICE_DS_BYTES`."""
+    budget = float(os.environ.get("S3GRL_TPU_DEVICE_DS_BYTES", DEVICE_DS_BYTES))
+
     def _est(r_ccn: int, bytes_per: int) -> int:
         return L * (sign_k + 1) * (2 + r_ccn) * (F + 1) * bytes_per
 
     eff_dev = eff_ccn
-    while eff_dev > 2 and _est(eff_dev, 2) > DEVICE_DS_BYTES:
+    while eff_dev > 2 and _est(eff_dev, 2) > budget:
         eff_dev //= 2
-    if _est(eff_dev, 2) > 2 * DEVICE_DS_BYTES:
+    if _est(eff_dev, 2) > 2 * budget:
         return eff_ccn, torch.float32, torch.device("cpu")
     if eff_dev < eff_ccn:
         warnings.warn(
             f"PoS+ CCN pad halved {eff_ccn} -> {eff_dev} to fit the device "
             f"dataset budget ({_est(eff_ccn, 2) / 1e9:.1f} GB bf16 at "
-            f"R={2 + eff_ccn} > {DEVICE_DS_BYTES / 1e9:.1f} GB for L={L}, "
+            f"R={2 + eff_ccn} > {budget / 1e9:.1f} GB for L={L}, "
             f"F={F}); densest links lose their furthest CCN rows.",
             stacklevel=3,
         )
-    dtype = torch.float32 if _est(eff_dev, 4) <= DEVICE_DS_BYTES else torch.bfloat16
+    dtype = torch.float32 if _est(eff_dev, 4) <= budget else torch.bfloat16
     return eff_dev, dtype, dev
 
 

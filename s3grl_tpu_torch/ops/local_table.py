@@ -15,8 +15,10 @@ same subgraph, -1 after; the target link leaves rows 0 and 1 (reference
 ``utils.py:78-80``); rows of empty slots are all -1. The caller gives the
 width, one that no row's local degree passes (``operators/pos.
 local_table_width``: ``min(S, D_tab)`` rounded up to 32 on a table that
-repeats no neighbor); padding columns carry weight 0 and change no output
-of ``pos_power_rows``.
+repeats no neighbor). The table carries no weight array: an entry weighs 1
+where its slot is >= 0 and 0 elsewhere, which ``pos_power_rows`` takes as
+``w=None``, as the JAX package derives ``w = loc >= 0`` on the chip
+(``s3grl_tpu/operators/pos.py:465``); padding columns change no output.
 
 On the card one call is one launch of ``csrc/local_table.cu`` on the
 current stream, with no read back to the host. On CPU tensors the wrapper
@@ -36,6 +38,18 @@ from s3grl_tpu_torch.utils.device import Work
 WIDTH_MULTIPLE = 32
 
 
+def rows_per_block(S: int, width: int) -> int:
+    """Rows of one subgraph that one block of the kernel builds (its grid is
+    (S / rows_per_block, B)). Each block hashes all S members once, and a
+    row's stream of entries is at most ``width`` long, so a block takes the
+    least power of two of rows, 16 to 256, whose longest streams add up to
+    16 S: at the hub batch (S = width = 1,024, rows of hundreds of entries)
+    16 rows a block ran fastest, at the main path's S = 256 (width 96, rows
+    of about a dozen) 64 (``chip_smoke.py``'s sweep, PERF.md)."""
+    want = -(-16 * S // max(1, width))
+    return min(256, max(16, 1 << (want - 1).bit_length()))
+
+
 def table_width(entries: int) -> int:
     """A table width that holds ``entries`` entries a row: rounded up to
     :data:`WIDTH_MULTIPLE`, at least one multiple."""
@@ -52,7 +66,7 @@ def local_table_reference(
 ):
     """Plain torch version of :func:`local_table`, on a slot map (the idea
     of ``sampling/extraction.assemble_local_structure``) and a stable
-    compaction: (loc [B, S, width] int32, w [B, S, width] float32)."""
+    compaction: loc [B, S, width] int32."""
     B, S = nodes.shape
     N, D = nbr.shape
     dev = nbr.device
@@ -81,15 +95,14 @@ def local_table_reference(
     col = torch.where(hit & (rank <= W), rank - 1, torch.full_like(rank, W))
     loc = torch.full((B, S, W + 1), -1, dtype=torch.int64, device=dev)
     loc.scatter_(2, col, torch.where(hit, lj1 - 1, torch.full_like(lj1, -1)))
-    loc = loc[:, :, :W].to(torch.int32).contiguous()
-    return loc, (loc >= 0).to(torch.float32)
+    return loc[:, :, :W].to(torch.int32).contiguous()
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("local_table")
     if not getattr(lib, "_s3grl_typed", False):
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.s3grl_local_table.argtypes = [p, p, i64, p, p, p, i32, i32, i32, p, p, p]
+        lib.s3grl_local_table.argtypes = [p, p, i64, p, p, p, i32, i32, i32, i32, p, p]
         lib.s3grl_local_table.restype = i32
         lib.s3grl_local_table_error_string.argtypes = [i32]
         lib.s3grl_local_table_error_string.restype = ctypes.c_char_p
@@ -105,13 +118,14 @@ def local_table(
     links: torch.Tensor,  # [B, 2] integer
     width: int,
 ):
-    """(loc [B, S, width] int32 local slots, -1 on padding; w [B, S, width]
-    float32, 1 where loc >= 0). ``width`` must be at least the largest
-    local degree: entries past it are not written.
+    """loc [B, S, width] int32: local slots, -1 on padding (weight 1 where
+    loc >= 0, 0 elsewhere). ``width`` must be at least the largest local
+    degree: entries past it are not written.
 
     CPU tensors go to :func:`local_table_reference`. CUDA tensors launch
-    the kernel once on the current stream; anything it does not take
-    raises. ``local_table.launches`` counts the calls that launch.
+    the kernel once on the current stream (``width`` a multiple of 4, for
+    its 16-byte stores); anything it does not take raises.
+    ``local_table.launches`` counts the calls that launch.
     """
     dev = nodes.device
     if dev.type == "cpu":
@@ -128,19 +142,21 @@ def local_table(
     _build.check_arg(links, "links", torch.int32, (B, 2), dev)
     if min(S, D, width) < 1:
         raise ValueError(f"empty shape: S={S}, D={D}, width={width}")
+    if width % 4:
+        raise ValueError(f"the kernel writes 16-byte stores: width {width} is not a "
+                         f"multiple of 4")
     loc = torch.empty((B, S, width), dtype=torch.int32, device=dev)
-    w = torch.empty((B, S, width), dtype=torch.float32, device=dev)
     lib = _lib()
     err = lib.s3grl_local_table(
         nbr.data_ptr(), deg.data_ptr(), D, nodes.data_ptr(), node_mask.data_ptr(),
-        links.data_ptr(), B, S, width, loc.data_ptr(), w.data_ptr(),
+        links.data_ptr(), B, S, width, rows_per_block(S, width), loc.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         msg = lib.s3grl_local_table_error_string(err).decode()
         raise RuntimeError(f"local_table launch failed: {msg} ({err})")
     local_table.launches += 1
-    return loc, w
+    return loc
 
 
 local_table.launches = 0
@@ -160,8 +176,8 @@ def work(
 
     Reads: the node sets (ids and mask) and the links; each member row's
     degree and its live table entries (``count`` "live"), or its whole
-    ``D_tab``-wide row ("padded"). Writes: the table and its weights at
-    ``width``, once.
+    ``D_tab``-wide row ("padded"). Writes: the table at ``width``, once
+    (no weight array).
     """
     B, S = nodes.shape
     members = node_mask.reshape(-1)
@@ -172,5 +188,5 @@ def work(
         entries = rows * int(nbr.shape[1])
     else:
         raise ValueError(f"count must be live or padded, got {count!r}")
-    n_bytes = 5 * B * S + 8 * B + 4 * rows + 4 * entries + 8 * B * S * width
+    n_bytes = 5 * B * S + 8 * B + 4 * rows + 4 * entries + 4 * B * S * width
     return Work(n_bytes=float(n_bytes), flops=0.0)

@@ -10,7 +10,10 @@ returns the R selected rows of ``Â^k subg_x`` for k = 0..K as
 ``row_ids`` holds the id by which neighbor entries name each slot: global
 node ids with -1 on empty slots, or ``None`` for the slot iota (a table of
 local slots). Non-negative row ids must be unique within a subgraph, and a
-negative neighbor id names no slot. A selected row outside [0, S) gives a
+negative neighbor id names no slot. In local-slot mode ``w`` may be
+``None``: weight 1 wherever the slot is >= 0, 0 elsewhere (the table of
+``ops/local_table``, which carries no weight array); a ``None`` weight with
+``row_ids`` raises. A selected row outside [0, S) gives a
 zero row. The TPU kernel's three modes (full chain, selected-row chain and
 staircase densify) compute the same function; here one kernel serves all
 shapes, and ``chunk_tiles`` (the staircase's tile counts) is accepted and
@@ -42,6 +45,23 @@ _MAX_SMEM = 232448
 _H_SMEM_BUDGET = 110 * 1024
 
 
+def _no_weights_check(w: Optional[torch.Tensor], row_ids: Optional[torch.Tensor]) -> None:
+    if w is None and row_ids is not None:
+        raise ValueError("w=None (weight 1 where the slot is >= 0) is for local slots only; "
+                         "a call with row_ids passes its weights")
+
+
+def _kept(nbr, w, row_ids, S):
+    """(loc [B, S*D] int64, keep [B, S*D] bool): each entry's slot, and
+    whether it names one with a nonzero weight (``w`` None: weight 1 where
+    the slot is >= 0)."""
+    _no_weights_check(w, row_ids)
+    loc, found = _resolve_slots(nbr, row_ids, S)
+    if w is None:
+        return loc, found
+    return loc, found & (w.reshape(found.shape) != 0)
+
+
 def _resolve_slots(nbr: torch.Tensor, row_ids: Optional[torch.Tensor], S: int):
     """loc [B, S*D] (int64, the slot each neighbor entry names) and found
     [B, S*D] (bool), by binary search over the sorted row ids."""
@@ -60,7 +80,7 @@ def _resolve_slots(nbr: torch.Tensor, row_ids: Optional[torch.Tensor], S: int):
 def pos_selector_rows_reference(
     sel_idx: torch.Tensor,  # [B, R] integer selected local rows
     nbr: torch.Tensor,  # [B, S, D] integer (local slots OR global ids)
-    w: torch.Tensor,  # [B, S, D] float32 (0 on padding; link removed)
+    w: Optional[torch.Tensor],  # [B, S, D] float32 (0 on padding; link removed), or None
     *,
     sign_k: int,
     row_ids: Optional[torch.Tensor] = None,  # [B, S] id of each row; iota if None
@@ -78,19 +98,20 @@ def pos_selector_rows_reference(
     the zeros after its entries)."""
     B, S, _ = nbr.shape
     R = sel_idx.shape[1]
-    loc, found = _resolve_slots(nbr, row_ids, S)
-    keep = (found & (w.reshape(B, -1) != 0)).reshape(B, S, -1)
+    dev = nbr.device
+    loc, keep = _kept(nbr, w, row_ids, S)
+    keep = keep.reshape(B, S, -1)
     rank = torch.cumsum(keep, dim=2)
     D = 32 * max(1, -(-(int(rank[:, :, -1].max()) if rank.numel() else 0) // 32))
     col = torch.where(keep, rank - 1, torch.full_like(rank, D))
-    packed_loc = torch.zeros((B, S, D + 1), dtype=torch.int64, device=w.device)
+    packed_loc = torch.zeros((B, S, D + 1), dtype=torch.int64, device=dev)
     packed_loc.scatter_(2, col, torch.where(keep.reshape(B, -1), loc, 0).reshape(B, S, -1))
-    packed_w = torch.zeros((B, S, D + 1), dtype=torch.float32, device=w.device)
-    packed_w.scatter_(2, col, torch.where(keep, w.float(), 0.0))
+    packed_w = torch.zeros((B, S, D + 1), dtype=torch.float32, device=dev)
+    packed_w.scatter_(2, col, keep.float() if w is None else torch.where(keep, w.float(), 0.0))
     loc = packed_loc[:, :, :D].reshape(B, S * D)
     wv = packed_w[:, :, :D].reshape(B, S * D)
     coldeg = wv.reshape(B, S, D).sum(dim=-1)
-    rowdeg = torch.zeros((B, S), dtype=torch.float32, device=w.device)
+    rowdeg = torch.zeros((B, S), dtype=torch.float32, device=dev)
     rowdeg.scatter_add_(1, loc, wv)
 
     def inv_sqrt(deg):
@@ -110,7 +131,7 @@ def pos_selector_rows_reference(
         h = (g * wn[:, None]).sum(dim=-1)
         hs.append(h)
     if not hs:
-        return torch.zeros((B, 0, S), dtype=torch.float32, device=w.device)
+        return torch.zeros((B, 0, S), dtype=torch.float32, device=dev)
     return torch.cat(hs, dim=1)
 
 
@@ -123,7 +144,7 @@ def _one_hot(sel_idx: torch.Tensor, S: int) -> torch.Tensor:
 def pos_power_rows_reference(
     sel_idx: torch.Tensor,  # [B, R] integer selected local rows
     nbr: torch.Tensor,  # [B, S, D] integer (local slots OR global ids)
-    w: torch.Tensor,  # [B, S, D] float32 (0 on padding; link removed)
+    w: Optional[torch.Tensor],  # [B, S, D] float32 (0 on padding; link removed), or None
     subg_x: torch.Tensor,  # [B, S, F] float32 (zeroed on padded nodes)
     *,
     sign_k: int,
@@ -174,11 +195,13 @@ def _check_table(sel_idx, nbr, w, row_ids, sign_k, dev):
     """Check what the selector kernel takes; return (B, S, D, R)."""
     if sign_k < 0:
         raise ValueError(f"sign_k must be >= 0, got {sign_k}")
+    _no_weights_check(w, row_ids)
     B, S, D = nbr.shape
     R = sel_idx.shape[1]
     _build.check_arg(sel_idx, "sel_idx", torch.int32, (B, R), dev)
     _build.check_arg(nbr, "nbr", torch.int32, (B, S, D), dev)
-    _build.check_arg(w, "w", torch.float32, (B, S, D), dev)
+    if w is not None:
+        _build.check_arg(w, "w", torch.float32, (B, S, D), dev)
     if row_ids is not None:
         _build.check_arg(row_ids, "row_ids", torch.int32, (B, S), dev)
     if min(S, R) < 1 or D < 1:
@@ -206,7 +229,7 @@ def _selector_rows_cuda(lib, sel_idx, nbr, w, row_ids, sign_k, B, S, D, R):
     if smem > _MAX_SMEM:
         raise ValueError(f"S={S}, D={D}, R={R} need {smem} bytes of shared memory")
     err = lib.s3grl_pos_selector_rows(
-        sel_idx.data_ptr(), nbr.data_ptr(), w.data_ptr(),
+        sel_idx.data_ptr(), nbr.data_ptr(), w.data_ptr() if w is not None else None,
         row_ids.data_ptr() if has_ids else None,
         h.data_ptr(), spill.data_ptr() if spill is not None else None,
         B, S, D, R, sign_k, cap, h_in_smem, smem,
@@ -219,7 +242,7 @@ def _selector_rows_cuda(lib, sel_idx, nbr, w, row_ids, sign_k, B, S, D, R):
 def pos_selector_rows(
     sel_idx: torch.Tensor,  # [B, R] int32
     nbr: torch.Tensor,  # [B, S, D] int32
-    w: torch.Tensor,  # [B, S, D] float32
+    w: Optional[torch.Tensor],  # [B, S, D] float32, or None (local slots only)
     *,
     sign_k: int,
     row_ids: Optional[torch.Tensor] = None,  # [B, S] int32
@@ -251,7 +274,7 @@ pos_selector_rows.launches = 0
 def pos_power_rows(
     sel_idx: torch.Tensor,  # [B, R] int32
     nbr: torch.Tensor,  # [B, S, D] int32
-    w: torch.Tensor,  # [B, S, D] float32
+    w: Optional[torch.Tensor],  # [B, S, D] float32, or None (local slots only)
     subg_x: torch.Tensor,  # [B, S, F] float32
     *,
     sign_k: int,
@@ -303,19 +326,17 @@ pos_power_rows.launches = 0
 pos_power_rows.local_launches = 0  # the launches in local-slot mode (row_ids None)
 
 
-def resolved_entries(nbr: torch.Tensor, w: torch.Tensor,
+def resolved_entries(nbr: torch.Tensor, w: Optional[torch.Tensor],
                      row_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B] int64: each subgraph's neighbor entries that name one of its slots
     and carry a nonzero weight (the entries the K steps walk)."""
-    B, S, _ = nbr.shape
-    _, found = _resolve_slots(nbr, row_ids, S)
-    return (found & (w.reshape(B, -1) != 0)).sum(dim=1)
+    return _kept(nbr, w, row_ids, nbr.shape[1])[1].sum(dim=1)
 
 
 def work(
     sel_idx: torch.Tensor,
     nbr: torch.Tensor,
-    w: torch.Tensor,
+    w: Optional[torch.Tensor],
     subg_x: torch.Tensor,
     *,
     sign_k: int,
@@ -326,15 +347,15 @@ def work(
     """The bytes and FLOP one :func:`pos_power_rows` call must do for this
     data, whatever implements it.
 
-    Bytes: the member slots' rows of the table and its weights, their rows
-    of X and their row ids (global mode), the selected row ids, each read
-    once, and the output written once. FLOP: one multiply-add per resolved
+    Bytes: the member slots' rows of the table and its weights (none where
+    ``w`` is None), their rows of X and their row ids (global mode), the
+    selected row ids, each read once, and the output written once. FLOP: one multiply-add per resolved
     entry (:func:`resolved_entries`) and selected row per step, and one per
     (k >= 1, selected row, member slot, feature) for the output; a padded
     slot adds nothing to the output. ``node_mask`` None takes every slot as
     a member. ``count`` "padded" reads every slot's row of the table and of
-    X; "live" reads of each member row only its nonzero-weight entries, not
-    the table's padded width.
+    X; "live" reads of each member row only its nonzero-weight entries
+    (slots >= 0 where ``w`` is None), not the table's padded width.
 
     This is not bench.py's TPU count, which pads F to 128 lanes and counts
     a dense [S, S] densify and power chain (bench.py:217-229), nor the
@@ -352,9 +373,11 @@ def work(
     elif count == "padded":
         rows, table = B * S, B * S * D
     elif count == "live":
-        table = int(((w != 0) & node_mask[:, :, None]).sum())
+        weighted = (nbr >= 0) if w is None else (w != 0)
+        table = int((weighted & node_mask[:, :, None]).sum())
     else:
         raise ValueError(f"count must be members, padded or live, got {count!r}")
     ids = rows if row_ids is not None else 0
-    n_bytes = 4 * (2 * table + rows * F + B * (K + 1) * R * F + B * R + ids)
+    arrays = 1 if w is None else 2  # the table's ids, and its weights
+    n_bytes = 4 * (arrays * table + rows * F + B * (K + 1) * R * F + B * R + ids)
     return Work(n_bytes=float(n_bytes), flops=2.0 * (K * R * entries + K * R * rows * F))

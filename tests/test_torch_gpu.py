@@ -597,8 +597,6 @@ def test_world_one_nccl_sharded_precompute_equals_one_process(tmp_path, monkeypa
     stays in the host tier, as one process keeps it."""
     import torch.distributed as dist
 
-    from s3grl_tpu_torch.operators import pos as pos_module
-
     from s3grl_tpu_torch.data.graph import Graph
     from s3grl_tpu_torch.operators.pos import precompute_pos
     from s3grl_tpu_torch.operators.sop import host_normalized_edges, precompute_sop
@@ -626,7 +624,7 @@ def test_world_one_nccl_sharded_precompute_equals_one_process(tmp_path, monkeypa
         assert pos_power_rows.launches > before
         assert torch.equal(got.xs, want.xs) and torch.equal(got.row_mask, want.row_mask)
         with monkeypatch.context() as m:
-            m.setattr(pos_module, "DEVICE_DS_BYTES", 1)
+            m.setenv("S3GRL_TPU_DEVICE_DS_BYTES", "1")
             want = precompute_pos(dg, links, y, **kw)
             got = pdist.precompute_pos_sharded(mesh, dg, links, y, **kw)
         assert want.xs.device.type == got.xs.device.type == got.row_mask.device.type == "cpu"
@@ -673,9 +671,11 @@ def _card_batches(dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("which", ["S256", "hub"])
 def test_local_table_kernel_equals_plain_version(which):
-    """The card-built local table and its weights equal to the plain
-    version's bit for bit (integer output), at the route's width."""
+    """The card-built local table (slots only) equal to the plain version's
+    bit for bit (integer output), at the route's width, at every rows a
+    block the kernel can be asked for."""
     from s3grl_tpu_torch.operators.pos import local_table_width
+    from s3grl_tpu_torch.ops import local_table as lt
     from s3grl_tpu_torch.ops.local_table import local_table, local_table_reference
 
     dev = _cuda()
@@ -686,10 +686,52 @@ def test_local_table_kernel_equals_plain_version(which):
     got = local_table(*args)
     torch.cuda.synchronize()
     assert local_table.launches == before + 1
-    for a, b in zip(got, local_table_reference(*args)):
-        assert a.dtype == b.dtype and torch.equal(a, b)
-    assert got[0].shape[2] == args[-1]
-    assert int((got[0] >= 0).sum(dim=2).max()) <= args[-1]
+    want = local_table_reference(*args)
+    assert got.dtype == want.dtype == torch.int32 and torch.equal(got, want)
+    assert got.shape[2] == args[-1]
+    assert int((got >= 0).sum(dim=2).max()) <= args[-1]
+    rule = lt.rows_per_block
+    try:
+        for rows in (1, 32, 100, 256):
+            lt.rows_per_block = lambda S, width, rows=rows: rows
+            assert torch.equal(local_table(*args), want), rows
+    finally:
+        lt.rows_per_block = rule
+
+
+@pytest.mark.gpu
+def test_local_table_kernel_rejects_a_width_it_cannot_store():
+    """The kernel writes 16-byte stores: a width that is not a multiple of
+    4 raises, and launches nothing."""
+    from s3grl_tpu_torch.ops.local_table import local_table
+
+    dev = _cuda()
+    dg, links, nodes, mask = _main_path_batch(dev, B=4, S=32)
+    before = local_table.launches
+    with pytest.raises(ValueError, match="multiple of 4"):
+        local_table(dg.nbr, dg.degrees(), nodes.to(torch.int32).contiguous(), mask, links, 30)
+    assert local_table.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["S256", "hub"])
+def test_pos_power_rows_without_weights_equals_the_slots_weights_on_the_card(which):
+    """``pos_power_rows`` and its selector phase on the card-built table
+    with ``w=None`` give the bits of the same calls with ``w = loc >= 0``."""
+    from s3grl_tpu_torch.operators.pos import local_table_kernel_inputs
+
+    dev = _cuda()
+    dg, links, nodes, mask = _card_batches(dev)[which]
+    sel, loc, w, x, _ = local_table_kernel_inputs(dg, links, nodes, mask, max_ccn=8,
+                                                  strategy="union")
+    assert w is None
+    spelled = (loc >= 0).float()
+    assert torch.equal(pos_power_rows(sel, loc, None, x, sign_k=3),
+                       pos_power_rows(sel, loc, spelled, x, sign_k=3))
+    assert torch.equal(pos_selector_rows(sel, loc, None, sign_k=3),
+                       pos_selector_rows(sel, loc, spelled, sign_k=3))
+    with pytest.raises(ValueError, match="local slots only"):
+        pos_power_rows(sel, loc, None, x, sign_k=3, row_ids=nodes.to(torch.int32))
 
 
 @pytest.mark.gpu
@@ -707,6 +749,7 @@ def test_pos_power_rows_on_the_local_table_equals_the_global_call(which, ccn):
     want = pos_power_rows(sel, nbr, w, x, sign_k=3, row_ids=row_ids)
     lsel, loc, lw, lx, lrm = local_table_kernel_inputs(dg, links, nodes, mask, **kw)
     assert torch.equal(lsel, sel) and torch.equal(lrm, rm) and torch.equal(lx, x)
+    assert lw is None
     assert loc.shape[2] <= nbr.shape[2]
     got = pos_power_rows(lsel, loc, lw, lx, sign_k=3)
     torch.cuda.synchronize()

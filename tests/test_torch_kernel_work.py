@@ -11,10 +11,14 @@ from tests.torch_port_helpers import kernel_inputs, random_edges
 
 
 def brute_pos_work(sel, nbr, w, x, K, row_ids, node_mask, count):
-    """Entry by entry: 8 bytes per table entry read (id and weight), 4 per
-    feature of each row of X read, 4 per row id read, 4 per selected row id,
-    4 per output value; 2·K·R FLOP per entry that names a slot with a
-    nonzero weight, 2·K·R·F per slot read."""
+    """Entry by entry: 8 bytes per table entry read (id and weight; 4, the
+    id alone, where ``w`` is None and an entry weighs 1 where its slot is
+    >= 0), 4 per feature of each row of X read, 4 per row id read, 4 per
+    selected row id, 4 per output value; 2·K·R FLOP per entry that names a
+    slot with a nonzero weight, 2·K·R·F per slot read."""
+    entry_bytes = 4 if w is None else 8
+    if w is None:
+        w = (nbr >= 0).astype(np.float32)
     B, S, D = nbr.shape
     R, F = sel.shape[1], x.shape[2]
     n_bytes = 4 * B * R + 4 * B * (K + 1) * R * F
@@ -28,19 +32,25 @@ def brute_pos_work(sel, nbr, w, x, K, row_ids, node_mask, count):
                 flops += 2 * K * R * F
             for d in range(D):
                 if read and (count != "live" or w[b, s, d] != 0):
-                    n_bytes += 8
+                    n_bytes += entry_bytes
                 if w[b, s, d] != 0 and int(nbr[b, s, d]) in slots:
                     flops += 2 * K * R
     return n_bytes, flops
 
 
 @pytest.mark.parametrize("count", ["members", "padded", "live"])
-@pytest.mark.parametrize("mode", ["global", "local"])
+@pytest.mark.parametrize("mode", ["global", "local", "local slots only"])
 def test_pos_work_equals_a_brute_force_count(mode, count):
-    sel, nbr, w, x, row_ids = kernel_inputs(3, B=2, S=7, D=5, F=3, R=2, mode=mode)
+    """"local slots only": the table of ``ops/local_table`` (-1 where the
+    weight was 0) with ``w`` None, which counts no weight array."""
+    sel, nbr, w, x, row_ids = kernel_inputs(3, B=2, S=7, D=5, F=3, R=2,
+                                            mode=mode.split()[0])
+    if mode == "local slots only":
+        nbr, w = np.where(w != 0, nbr, -1).astype(np.int32), None
     rng = np.random.default_rng(4)
     mask = row_ids >= 0 if row_ids is not None else rng.random((2, 7)) < 0.7
-    t = {k: torch.as_tensor(v) for k, v in dict(sel_idx=sel, nbr=nbr, w=w, subg_x=x).items()}
+    t = {k: None if v is None else torch.as_tensor(v)
+         for k, v in dict(sel_idx=sel, nbr=nbr, w=w, subg_x=x).items()}
     got = pos_kernel.work(**t, sign_k=3, row_ids=None if row_ids is None else
                           torch.as_tensor(row_ids), node_mask=torch.as_tensor(mask), count=count)
     assert (got.n_bytes, got.flops) == brute_pos_work(sel, nbr, w, x, 3, row_ids, mask, count)

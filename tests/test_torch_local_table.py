@@ -32,7 +32,13 @@ import s3grl_tpu_torch.operators.pos as tpos
 import s3grl_tpu_torch.sampling.extraction as text
 from s3grl_tpu_torch import native
 from s3grl_tpu_torch.ops import local_table as lt
-from s3grl_tpu_torch.ops.pos_kernel import pos_selector_rows_reference
+from s3grl_tpu_torch.ops import pos_kernel
+from s3grl_tpu_torch.ops.pos_kernel import (
+    pos_power_rows,
+    pos_power_rows_reference,
+    pos_selector_rows,
+    pos_selector_rows_reference,
+)
 from tests.test_torch_jax_native_build import build_the_jax_native_core_once
 from tests.torch_port_helpers import (
     blogcatalog_like_edges,
@@ -105,8 +111,8 @@ def test_local_table_reference_equals_the_native_tables(graph, hops, S, jax_nati
     d_cap = min(S, int(td.nbr.shape[1]))
     W = tpos.local_table_width(td, S)
     assert not td.repeats_a_neighbor() and W == lt.table_width(d_cap)
-    loc, w = lt.local_table_reference(td.nbr, td.degrees(), nodes, mask,
-                                      torch.as_tensor(links), W)
+    loc = lt.local_table_reference(td.nbr, td.degrees(), nodes, mask, torch.as_tensor(links),
+                                   W)
     mdeg = (loc >= 0).sum(dim=2, dtype=torch.int32).amax(dim=1)
     assert loc.shape[2] == W and int(mdeg.max()) <= d_cap
     row_ptr, col_idx = td.host_csr()
@@ -121,7 +127,7 @@ def test_local_table_reference_equals_the_native_tables(graph, hops, S, jax_nati
         k = min(W, d_cap)
         np.testing.assert_array_equal(h_loc[:, :, :k], loc[:, :, :k].numpy())
         assert (loc[:, :, k:] == -1).all()
-    assert torch.equal(w, (loc >= 0).float())
+    assert loc.dtype == torch.int32 and loc.is_contiguous()  # slots only, no weights
     assert not (loc[~mask] >= 0).any()  # rows of empty slots are empty
 
 
@@ -142,11 +148,10 @@ def test_local_table_keeps_duplicates_skips_self_padding_and_drops_the_link():
     assert td.repeats_a_neighbor() and tpos.local_table_width(td, 6) == lt.table_width(8)
     width = tpos.local_table_width(td, 6)
     got = lt.local_table(td.nbr, td.degrees(), nodes, mask, links, width)
-    loc, w = lt.local_table_reference(td.nbr, td.degrees(), nodes, mask, links, width)
-    for a, b in zip(got, (loc, w)):
-        assert torch.equal(a, b)
+    loc = lt.local_table_reference(td.nbr, td.degrees(), nodes, mask, links, width)
+    assert torch.equal(got, loc)
     cut = lt.local_table_reference(td.nbr, td.degrees(), nodes, mask, links, 2)
-    assert torch.equal(cut[0], loc[:, :, :2]) and torch.equal(cut[1], w[:, :, :2])
+    assert torch.equal(cut, loc[:, :, :2])
     ldeg = (loc >= 0).sum(dim=2)
     rp, ci, _ = g.csr
     for b in range(2):
@@ -169,12 +174,25 @@ def test_table_width_rounds_up_to_the_multiple():
     assert [lt.table_width(d) for d in (0, 1, 32, 33, 1021)] == [32, 32, 32, 64, 1024]
 
 
+def test_rows_per_block_gives_each_hash_enough_rows():
+    """A block's rows: the least power of two, 16 to 256, whose rows of at
+    most ``width`` entries add up to 16 S (the hub batch's 16, the main
+    path's S = 256 batch's 64)."""
+    assert lt.rows_per_block(1024, 1024) == 16 and lt.rows_per_block(256, 96) == 64
+    assert lt.rows_per_block(32, 32) == 16 and lt.rows_per_block(4096, 32) == 256
+    for S, width in ((1024, 1024), (256, 96), (512, 64), (100, 1024), (2048, 96)):
+        r = lt.rows_per_block(S, width)
+        assert r & (r - 1) == 0 and 16 <= r <= 256
+        assert r * width >= 16 * S or r == 256
+        assert r == 16 or (r // 2) * width < 16 * S
+
+
 @pytest.mark.parametrize("count", ["live", "padded"])
 def test_local_table_work_counts_bytes_by_brute_force(count):
     _, td, links, _ = _graphs("hub-narrow")
     _, nodes, mask = _node_sets(td, links, 1, 32)
     loc = lt.local_table_reference(td.nbr, td.degrees(), nodes, mask, torch.as_tensor(links),
-                                   tpos.local_table_width(td, 32))[0]
+                                   tpos.local_table_width(td, 32))
     B, S, W = loc.shape
     deg = td.degrees().numpy()
     read = 0
@@ -183,7 +201,7 @@ def test_local_table_work_counts_bytes_by_brute_force(count):
             if mask[b, s]:
                 g_id = int(nodes[b, s])
                 read += 4 + 4 * (deg[g_id] if count == "live" else td.nbr.shape[1])
-    want = 5 * B * S + 8 * B + read + 8 * B * S * W
+    want = 5 * B * S + 8 * B + read + 4 * B * S * W  # the slots; no weight array
     got = lt.work(td.nbr, td.degrees(), nodes, mask, W, count=count)
     assert got.n_bytes == want and got.flops == 0.0
 
@@ -207,6 +225,94 @@ def test_plain_selector_gives_the_same_bits_on_a_wider_table():
     assert torch.equal(a, b)
 
 
+# (B, S, D, R, K): PoS and PoS+ rows, and K = 0 (no selector phase).
+NO_WEIGHT_SHAPES = [(3, 40, 12, 2, 3), (2, 64, 33, 6, 2), (4, 16, 5, 3, 0)]
+
+
+@pytest.mark.parametrize("B,S,D,R,K", NO_WEIGHT_SHAPES,
+                         ids=[f"S{s}-D{d}-R{r}-K{k}" for _, s, d, r, k in NO_WEIGHT_SHAPES])
+def test_no_weights_equal_the_weights_of_the_slots_bit_for_bit(B, S, D, R, K):
+    """``w=None`` in local-slot mode weighs 1 every slot >= 0 and 0 the
+    rest: the plain versions and the wrappers (on CPU tensors) give the
+    bits of the same call with ``w = (loc >= 0)``, on a table with -1
+    between its entries and slots out of range; the work counts drop the
+    weight array and keep the same entries."""
+    rng = np.random.default_rng(S + K)
+    loc = torch.as_tensor(rng.integers(0, S + 1, (B, S, D)).astype(np.int32))  # S: no slot
+    loc[torch.as_tensor(rng.random((B, S, D)) < 0.4)] = -1
+    w = (loc >= 0).float()
+    sel = torch.as_tensor(rng.integers(0, S, (B, R)).astype(np.int32))
+    x = torch.as_tensor(rng.normal(size=(B, S, 7)).astype(np.float32))
+    for fn in (pos_power_rows_reference, pos_power_rows):
+        assert torch.equal(fn(sel, loc, None, x, sign_k=K), fn(sel, loc, w, x, sign_k=K))
+    for fn in (pos_selector_rows_reference, pos_selector_rows):
+        assert torch.equal(fn(sel, loc, None, sign_k=K), fn(sel, loc, w, sign_k=K))
+    assert torch.equal(pos_kernel.resolved_entries(loc, None), pos_kernel.resolved_entries(loc, w))
+    mask = torch.as_tensor(rng.random((B, S)) < 0.8)
+    for count in ("members", "padded", "live"):
+        a = pos_kernel.work(sel, loc, None, x, sign_k=K, node_mask=mask, count=count)
+        b = pos_kernel.work(sel, loc, w, x, sign_k=K, node_mask=mask, count=count)
+        table = {"members": int(mask.sum()) * D, "padded": B * S * D,
+                 "live": int(((loc >= 0) & mask[:, :, None]).sum())}[count]
+        assert (a.n_bytes, a.flops) == (b.n_bytes - 4 * table, b.flops)
+
+
+def test_no_weights_with_row_ids_raises():
+    """``w=None`` is for local slots: with ``row_ids`` every plain version
+    and wrapper raises."""
+    rng = np.random.default_rng(9)
+    sel = torch.zeros((2, 2), dtype=torch.int32)
+    nbr = torch.as_tensor(rng.integers(0, 50, (2, 8, 4)).astype(np.int32))
+    x = torch.zeros((2, 8, 3))
+    ids = torch.as_tensor(rng.permutation(50)[:16].reshape(2, 8).astype(np.int32))
+    for fn in (pos_power_rows_reference, pos_power_rows):
+        with pytest.raises(ValueError, match="local slots only"):
+            fn(sel, nbr, None, x, sign_k=2, row_ids=ids)
+    for fn in (pos_selector_rows_reference, pos_selector_rows):
+        with pytest.raises(ValueError, match="local slots only"):
+            fn(sel, nbr, None, sign_k=2, row_ids=ids)
+    with pytest.raises(ValueError, match="local slots only"):
+        pos_kernel.resolved_entries(nbr, None, ids)
+
+
+@pytest.mark.parametrize("max_ccn,strategy", CCN, ids=CCN_IDS)
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_the_local_route_takes_no_weights_and_equals_global_and_jax(monkeypatch, graph,
+                                                                    max_ccn, strategy,
+                                                                    jax_native):
+    """One batch of ``precompute_pos``' body on the host BFS's node sets:
+    the local route hands ``pos_power_rows`` no weight array and gives the
+    global route's bits, and is within the kernel's bar of the JAX
+    ``pos_operators_local`` on the JAX native table of the same node sets."""
+    jd, td, links, _ = _graphs(graph)
+    S, hops = 64, 2
+    nd, _ = native.khop_nodes(*td.host_csr(), links, hops, S)
+    kw = dict(num_hops=hops, max_nodes=S, ratio_per_hop=1.0, max_nodes_per_hop=None,
+              sign_k=3, max_ccn=max_ccn, strategy=strategy)
+    weights = []
+    monkeypatch.setattr(tpos, "pos_power_rows",
+                        lambda *a, **k: weights.append(a[2]) or pos_power_rows(*a, **k))
+    out = {}
+    for mode in ("0", "1"):
+        monkeypatch.setenv("S3GRL_TPU_LOCAL_TAB", mode)
+        out[mode] = tpos._extract_and_operate(
+            td, torch.as_tensor(links), torch.zeros(len(links), dtype=torch.int32),
+            host_nodes=nd, **kw)
+    assert weights[0] is not None and weights[1] is None
+    for a, b in zip(out["1"], out["0"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    rp, ci = td.host_csr()
+    j_nd, _, jloc, mdeg = jax_native.khop_local_tab(rp, ci, links, hops, S,
+                                                    min(S, int(td.nbr.shape[1])))
+    np.testing.assert_array_equal(j_nd, nd)
+    hm = nd >= 0
+    xj, mj = jpos.pos_operators_local(jd, jnp.asarray(np.where(hm, nd, 0)), jnp.asarray(hm),
+                                      jnp.asarray(jloc[:, :, :int(mdeg.max())]), sign_k=3,
+                                      max_ccn=max_ccn, strategy=strategy)
+    np.testing.assert_array_equal(np.asarray(mj), out["1"][1].numpy())
+    np.testing.assert_allclose(np.asarray(xj), out["1"][0].numpy(), **TOL)
+
+
 @pytest.mark.parametrize("max_ccn,strategy", CCN, ids=CCN_IDS)
 @pytest.mark.parametrize("graph", sorted(GRAPHS))
 def test_pos_operators_local_equals_global_bit_for_bit(graph, max_ccn, strategy):
@@ -217,13 +323,13 @@ def test_pos_operators_local_equals_global_bit_for_bit(graph, max_ccn, strategy)
         lb = torch.as_tensor(links)
         xs_g, rm_g = tpos.pos_operators_global(td, lb, nodes, mask, **kw)
         loc = lt.local_table_reference(td.nbr, td.degrees(), nodes, mask, lb,
-                                       tpos.local_table_width(td, S))[0]
+                                       tpos.local_table_width(td, S))
         xs_l, rm_l = tpos.pos_operators_local(td, nodes, mask, loc, **kw)
         torch.testing.assert_close(rm_l, rm_g, rtol=0, atol=0)
         torch.testing.assert_close(xs_l, xs_g, rtol=0, atol=0)
         sel, nbr, w, x, rm = tpos.local_table_kernel_inputs(td, lb, nodes, mask,
                                                             max_ccn=max_ccn, strategy=strategy)
-        assert torch.equal(nbr, loc) and torch.equal(rm, rm_l)
+        assert torch.equal(nbr, loc) and torch.equal(rm, rm_l) and w is None
 
 
 @pytest.mark.parametrize("max_ccn,strategy", CCN, ids=CCN_IDS)
@@ -241,7 +347,7 @@ def test_pos_operators_local_matches_jax(max_ccn, strategy, jax_native):
                                       jnp.asarray(jloc[:, :, :int(mdeg.max())]), **kw)
     nodes, mask = torch.as_tensor(np.where(hm, nd, 0)), torch.as_tensor(hm)
     loc = lt.local_table(td.nbr, td.degrees(), nodes, mask, torch.as_tensor(links),
-                         tpos.local_table_width(td, S))[0]
+                         tpos.local_table_width(td, S))
     xt, mt = tpos.pos_operators_local(td, nodes, mask, loc, **kw)
     np.testing.assert_array_equal(np.asarray(mj), mt.numpy())
     np.testing.assert_allclose(np.asarray(xj), xt.numpy(), **TOL)

@@ -3,6 +3,8 @@
 Operator features at the JAX kernel's bar (rtol 2e-3, atol 2e-4); row
 masks bit for bit.
 """
+import warnings
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,3 +104,65 @@ def test_subgraph_sizes_and_ccn_width_match_jax():
         assert jpos.measure_ccn_width(jd, links, strategy, 64) == tpos.measure_ccn_width(
             td, links, strategy, 64
         )
+
+
+def _tier_budgets(f32_bytes: int) -> dict:
+    """``S3GRL_TPU_DEVICE_DS_BYTES`` values that force each storage tier for
+    a dataset of ``f32_bytes`` at its full CCN width: bf16 at that width
+    (its f32 size over the budget, its bf16 size within it), bf16 with the
+    CCN pad halved (the bf16 size just over it), and the host."""
+    return {"bf16": f32_bytes // 2, "halved": f32_bytes // 2 - 1, "host": 1}
+
+
+@pytest.mark.parametrize("tier", ["bf16", "halved", "host"])
+def test_storage_tier_follows_the_budget_variable_as_jax(monkeypatch, tier):
+    """The port reads ``S3GRL_TPU_DEVICE_DS_BYTES`` at each call, as the JAX
+    package does (pos.py:818): in each forced tier the dataset's dtype, CCN
+    width and place equal the JAX package's, and its values stay within the
+    bars of tests/test_assembly.py:97-113 (bf16 to storage precision)."""
+    rng, jd, td = _pair(1)
+    links = rng.integers(0, 150, (24, 2)).astype(np.int32)
+    y = rng.integers(0, 2, 24).astype(np.float32)
+    kw = dict(num_hops=2, sign_k=2, buckets=(32, 64, 128), batch_size=8,
+              max_subgraph_nodes=128, k_heuristic=1, max_ccn=8,
+              k_node_set_strategy="intersection")
+    monkeypatch.delenv("S3GRL_TPU_DEVICE_DS_BYTES", raising=False)
+    base_j = jpos.precompute_pos(jd, links, y, seed=3, **kw).to_host()
+    base_t = tpos.precompute_pos(td, links, y, device="cpu", **kw)
+    assert base_t.xs.dtype == torch.float32 and base_t.xs.shape == base_j.xs.shape
+    full_r = base_t.xs.shape[2]
+    assert full_r - 2 >= 8, "the fixture must have a CCN pad to halve"
+
+    monkeypatch.setenv("S3GRL_TPU_DEVICE_DS_BYTES", str(_tier_budgets(base_j.xs.nbytes)[tier]))
+    if tier == "halved":
+        with pytest.warns(UserWarning, match="CCN pad halved"):
+            a = jpos.precompute_pos(jd, links, y, seed=3, **kw)
+        with pytest.warns(UserWarning, match="CCN pad halved"):
+            b = tpos.precompute_pos(td, links, y, device="cpu", **kw)
+    else:
+        a = jpos.precompute_pos(jd, links, y, seed=3, **kw)
+        b = tpos.precompute_pos(td, links, y, device="cpu", **kw)
+    on_host = isinstance(a.xs, np.ndarray)
+    assert on_host == (tier == "host")
+    want_dtype = {"bf16": torch.bfloat16, "halved": torch.bfloat16, "host": torch.float32}
+    assert str(a.xs.dtype) == str(b.xs.dtype).removeprefix("torch.") == str(
+        want_dtype[tier]).removeprefix("torch.")
+    assert a.xs.shape == tuple(b.xs.shape) and a.row_mask.shape == tuple(b.row_mask.shape)
+    assert b.xs.shape[2] == ((full_r - 2) // 2 + 2 if tier == "halved" else full_r)
+    # The place: the plan's device for a dataset on the card is the card's,
+    # and the host tier's the CPU, whatever device the graph lies on.
+    L, K, F = len(links), kw["sign_k"], int(td.x.shape[1])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        eff, dtype, place = tpos._storage_tier(L, K, F, full_r - 2, torch.device("cuda"))
+    assert (eff + 2, dtype, place.type == "cpu") == (b.xs.shape[2], b.xs.dtype, on_host)
+
+    np.testing.assert_array_equal(np.asarray(a.row_mask), b.row_mask.numpy())
+    xa = np.asarray(a.xs, dtype=np.float32)
+    xb = b.xs.float().numpy()
+    if tier == "host":
+        np.testing.assert_allclose(xa, xb, **TOL)
+    else:
+        np.testing.assert_allclose(xa, xb, rtol=2e-2, atol=2e-2)
+    r = b.xs.shape[2]
+    np.testing.assert_allclose(xb, np.asarray(base_j.xs)[:, :, :r], rtol=2e-2, atol=2e-2)
