@@ -1,0 +1,4 @@
+"""score.device_idle: the share of the profiled scoring slice's wall time
+in which no operation ran on the device, in percent."""
+
+from benchmark.trace import idle_percent as read  # noqa: F401

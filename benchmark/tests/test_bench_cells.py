@@ -1,0 +1,53 @@
+"""Every cell's run at a tiny size on the CPU, the program's kernels in
+their plain versions: the port agrees with the plain reference by each
+number's limit; the control (the reference in TF32 in the program's place)
+fails one of them; and each fault that the cell can have, planted under the
+timed path, turns ``correct`` false."""
+import pytest
+
+from benchmark import faults, spec
+from benchmark.run import run_cell
+from benchmark.tests.tiny import ROOT, cells, make_tiny
+
+SEED = 2**33 + 5
+
+
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory):
+    return make_tiny(str(tmp_path_factory.mktemp("tiny")))
+
+
+def run(tiny, cell, traced=False, control=False):
+    root, bench = tiny
+    return run_cell(cell, SEED, 0.5, traced, root=root, bench_dir=bench, device="cpu",
+                    control=control)
+
+
+@pytest.mark.parametrize("cell", cells())
+def test_the_port_agrees_and_the_control_does_not(tiny, cell):
+    result, checks = run(tiny, cell, control=True)
+    assert result["correct"], result["checks"]
+    assert list(result)[-1] == "checks"
+    ctl = [c for c in checks if c.name.startswith("control_")]
+    assert ctl and not all(c.ok for c in ctl), result["checks"]
+
+
+@pytest.mark.parametrize("cell", cells())
+def test_a_traced_run_checks_the_same(tiny, cell):
+    result, _ = run(tiny, cell, traced=True)
+    assert result["correct"], result["checks"]
+    assert "breakdown" in result and "window_s" in result["device"]
+
+
+KIND_FAULTS = {"prep": faults.PREP, "score": faults.PREP, "fit": faults.PREP + faults.FIT}
+
+
+@pytest.mark.parametrize("cell,fault", [
+    (cell, fault) for cell in cells()
+    for fault in KIND_FAULTS[spec.load_cell(cell, ROOT).kind]])
+def test_a_planted_fault_is_caught(tiny, cell, fault, monkeypatch):
+    getattr(faults, fault)(monkeypatch)
+    result, _ = run(tiny, cell)
+    assert not result["correct"], result["checks"]
+    if fault == "state_unchanged":
+        assert result["checks"]["change_gap"]["value"] == pytest.approx(1.0)
