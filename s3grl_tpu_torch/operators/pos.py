@@ -76,6 +76,7 @@ from s3grl_tpu_torch import native
 from s3grl_tpu_torch.operators.common import OperatorDataset
 from s3grl_tpu_torch.ops.local_table import local_table, table_width
 from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
+from s3grl_tpu_torch.profiling import count, span
 from s3grl_tpu_torch.sampling.extraction import (
     _UNREACHED,
     DeviceGraph,
@@ -314,10 +315,12 @@ def pos_operators_global(
     :func:`pos_operators` (binary sub-adjacency, target-link removal, CCN
     selection). Returns (xs [B, K+1, R, F+1] f32, row_mask [B, R]).
     """
-    sel_idx, gnbr, w, subg_x, row_ids, row_mask = global_kernel_inputs(
-        dg, links, nodes, node_mask, max_ccn=max_ccn, strategy=strategy
-    )
-    xs = pos_power_rows(sel_idx, gnbr, w, subg_x, sign_k=sign_k, row_ids=row_ids)
+    with span("pos.inputs"):
+        sel_idx, gnbr, w, subg_x, row_ids, row_mask = global_kernel_inputs(
+            dg, links, nodes, node_mask, max_ccn=max_ccn, strategy=strategy
+        )
+    with span("pos.kernel"):
+        xs = pos_power_rows(sel_idx, gnbr, w, subg_x, sign_k=sign_k, row_ids=row_ids)
     return xs * row_mask[:, None, :, None], row_mask
 
 
@@ -497,11 +500,12 @@ def measure_subgraph_sizes(
     if link_seeds is None:
         link_seeds = np.arange(L, dtype=np.int32)
     out = np.empty(L, dtype=np.int32)
-    for start in range(0, L, batch_size):
-        lb = torch.as_tensor(links[start : start + batch_size], device=dg.device)
-        ls = torch.as_tensor(link_seeds[start : start + batch_size], device=dg.device)
-        dist = _bfs_distances(dg, lb, num_hops, ratio_per_hop, max_nodes_per_hop, ls)
-        out[start : start + len(lb)] = (dist != _UNREACHED).sum(dim=1).cpu().numpy()
+    with span("pos.device_bfs"):
+        for start in range(0, L, batch_size):
+            lb = torch.as_tensor(links[start : start + batch_size], device=dg.device)
+            ls = torch.as_tensor(link_seeds[start : start + batch_size], device=dg.device)
+            dist = _bfs_distances(dg, lb, num_hops, ratio_per_hop, max_nodes_per_hop, ls)
+            out[start : start + len(lb)] = (dist != _UNREACHED).sum(dim=1).cpu().numpy()
     return out
 
 
@@ -563,16 +567,19 @@ def _extract_and_operate(
         nodes = torch.as_tensor(np.where(host_nodes >= 0, host_nodes, 0), device=dev)
         node_mask = torch.as_tensor(host_nodes >= 0, device=dev)
     else:
-        nodes, node_mask, _, _ = extract_node_sets(
-            dg, links, num_hops=num_hops, max_nodes=max_nodes, ratio_per_hop=ratio_per_hop,
-            max_nodes_per_hop=max_nodes_per_hop, link_seeds=link_seeds,
-        )
+        with span("pos.device_bfs"):
+            nodes, node_mask, _, _ = extract_node_sets(
+                dg, links, num_hops=num_hops, max_nodes=max_nodes, ratio_per_hop=ratio_per_hop,
+                max_nodes_per_hop=max_nodes_per_hop, link_seeds=link_seeds,
+            )
     if local_table_route(max_nodes, int(dg.nbr.shape[1]),
                          sampled=samples(ratio_per_hop, max_nodes_per_hop)):
-        sel_idx, loc, _, subg_x, row_mask = local_table_kernel_inputs(
-            dg, links, nodes, node_mask, max_ccn=max_ccn, strategy=strategy
-        )
-        xs = pos_power_rows(sel_idx, loc, None, subg_x, sign_k=sign_k)
+        with span("pos.inputs"):
+            sel_idx, loc, _, subg_x, row_mask = local_table_kernel_inputs(
+                dg, links, nodes, node_mask, max_ccn=max_ccn, strategy=strategy
+            )
+        with span("pos.kernel"):
+            xs = pos_power_rows(sel_idx, loc, None, subg_x, sign_k=sign_k)
         return xs * row_mask[:, None, :, None], row_mask
     return pos_operators_global(dg, links, nodes, node_mask, sign_k=sign_k, max_ccn=max_ccn,
                                 strategy=strategy)
@@ -593,6 +600,18 @@ class PosPlan:
     host: bool  # node sets from the native host BFS
     nodes_all: Optional[np.ndarray]  # the whole split's host BFS table, or None
     extract_kw: dict  # the keywords of _extract_and_operate but max_nodes
+    sizes: Optional[np.ndarray] = None  # [L] the sizes bucketed by; None for walks
+
+    def route(self, dg: DeviceGraph, bucket: int) -> tuple[str, str]:
+        """How a batch in ``bucket`` runs: its node sets (``host``,
+        ``device`` or ``walks``) and the table the kernel reads (``global``,
+        or ``local``: the local-table route's, or ScaLed's own)."""
+        kw = self.extract_kw
+        if kw["rw_m"] and kw["rw_M"]:
+            return "walks", "local"
+        local = local_table_route(int(bucket), int(dg.nbr.shape[1]),
+                                  sampled=samples(kw["ratio_per_hop"], kw["max_nodes_per_hop"]))
+        return "host" if self.host else "device", "local" if local else "global"
 
     def operate(self, dg: DeviceGraph, links: np.ndarray, bucket: int, idx: np.ndarray):
         """(xs, row_mask) of the links ``links[idx]`` in ``bucket``."""
@@ -602,8 +621,9 @@ class PosPlan:
             if self.nodes_all is not None:
                 host_nodes = self.nodes_all[idx, :bucket]
             else:
-                host_nodes, _ = native.khop_nodes(*dg.host_csr(), links[idx],
-                                                  self.extract_kw["num_hops"], int(bucket))
+                with span("pos.host_bfs"):
+                    host_nodes, _ = native.khop_nodes(*dg.host_csr(), links[idx],
+                                                      self.extract_kw["num_hops"], int(bucket))
         return _extract_and_operate(
             dg, torch.as_tensor(links[idx], device=dev),
             torch.as_tensor(self.link_seeds[idx], device=dev),
@@ -685,11 +705,13 @@ def _sizes_and_table(dg, links, *, num_hops, ratio_per_hop, max_nodes_per_hop, b
         # a call at that width. Its sizes are exact below the cap and at
         # least the cap where the BFS stopped early, so clamped they are the
         # bucketing oracle.
-        nodes_all, sizes = native.khop_nodes(*dg.host_csr(), links, num_hops,
-                                             max_subgraph_nodes)
+        with span("pos.host_bfs"):
+            nodes_all, sizes = native.khop_nodes(*dg.host_csr(), links, num_hops,
+                                                 max_subgraph_nodes)
         return np.minimum(sizes, max_subgraph_nodes), nodes_all
     if host:
-        return native.bfs_sizes(*dg.host_csr(), links, num_hops), None
+        with span("pos.host_bfs"):
+            return native.bfs_sizes(*dg.host_csr(), links, num_hops), None
     return measure_subgraph_sizes(
         dg, links, link_seeds_of(seed, L), num_hops=num_hops, ratio_per_hop=ratio_per_hop,
         max_nodes_per_hop=max_nodes_per_hop, batch_size=max(batch_size, 512),
@@ -765,6 +787,7 @@ def pos_plan(
         extract_kw=dict(num_hops=num_hops, ratio_per_hop=ratio_per_hop,
                         max_nodes_per_hop=max_nodes_per_hop, sign_k=sign_k, max_ccn=eff_ccn,
                         strategy=k_node_set_strategy, rw_m=rw_m, rw_M=rw_M),
+        sizes=None if scaled else sizes,
     )
 
 
@@ -801,6 +824,18 @@ def precompute_pos(
     ``size_oracle`` and ``batch_multiple`` are :func:`pos_plan`'s;
     ``parallel/dist.precompute_pos_sharded`` runs the same plan, each rank
     its share of every batch.
+
+    Spans (``profiling.span``): ``pos.precompute`` around the call,
+    ``pos.plan`` around the plan and ``pos.batch/<nodes>/<table>/<S>``
+    around each batch with its store (``PosPlan.route`` names the route).
+    Counters (``profiling.count``), each batch: ``pos.batches``,
+    ``pos.links``, the links by node sets (``pos.links.host_bfs``,
+    ``pos.links.device_bfs``, ``pos.links.walks``) and by table
+    (``pos.links.global_table``, ``pos.links.local_table``), and the
+    kernel's subgraph slots, ``pos.slots_used`` (min(size, bucket) summed
+    over the batch's links, from the plan's host-side sizes) against
+    ``pos.slots`` (the bucket a link); ScaLed's walk batches, whose sizes
+    the host does not know, count no slots.
     """
     from s3grl_tpu_torch.utils.device import resolve_device
 
@@ -811,25 +846,48 @@ def precompute_pos(
         )
     if dg.x is None:
         raise ValueError("PoS requires node features (reference parity)")
-    L = links.shape[0]
-    links = np.asarray(links, dtype=np.int32)
-    plan = pos_plan(
-        dg, links, num_hops=num_hops, sign_k=sign_k, k_heuristic=k_heuristic,
-        k_node_set_strategy=k_node_set_strategy, max_ccn=max_ccn,
-        ratio_per_hop=ratio_per_hop, max_nodes_per_hop=max_nodes_per_hop, buckets=buckets,
-        batch_size=batch_size, max_subgraph_nodes=max_subgraph_nodes, seed=seed,
-        rw_m=rw_m, rw_M=rw_M, size_oracle=size_oracle, batch_multiple=batch_multiple,
-    )
-    F = int(dg.x.shape[1])
-    xs_all = torch.zeros((L, sign_k + 1, 2 + plan.eff_ccn, F + 1), dtype=plan.store_dtype,
-                         device=plan.store_dev)
-    mask_all = torch.zeros((L, 2 + plan.eff_ccn), dtype=torch.bool, device=plan.store_dev)
-    for bucket, idx in plan.batches:
-        xs, row_mask = plan.operate(dg, links, bucket, idx)
-        idx_t = torch.as_tensor(idx, device=plan.store_dev)
-        xs_all[idx_t] = xs.to(device=plan.store_dev, dtype=plan.store_dtype)
-        mask_all[idx_t] = row_mask.to(plan.store_dev)
+    with span("pos.precompute"):
+        L = links.shape[0]
+        links = np.asarray(links, dtype=np.int32)
+        with span("pos.plan"):
+            plan = pos_plan(
+                dg, links, num_hops=num_hops, sign_k=sign_k, k_heuristic=k_heuristic,
+                k_node_set_strategy=k_node_set_strategy, max_ccn=max_ccn,
+                ratio_per_hop=ratio_per_hop, max_nodes_per_hop=max_nodes_per_hop,
+                buckets=buckets, batch_size=batch_size, max_subgraph_nodes=max_subgraph_nodes,
+                seed=seed, rw_m=rw_m, rw_M=rw_M, size_oracle=size_oracle,
+                batch_multiple=batch_multiple,
+            )
+        F = int(dg.x.shape[1])
+        xs_all = torch.zeros((L, sign_k + 1, 2 + plan.eff_ccn, F + 1), dtype=plan.store_dtype,
+                             device=plan.store_dev)
+        mask_all = torch.zeros((L, 2 + plan.eff_ccn), dtype=torch.bool, device=plan.store_dev)
+        for bucket, idx in plan.batches:
+            nodes, table = plan.route(dg, bucket)
+            with span(f"pos.batch/{nodes}/{table}/{bucket}"):
+                xs, row_mask = plan.operate(dg, links, bucket, idx)
+                with span("pos.store"):
+                    idx_t = torch.as_tensor(idx, device=plan.store_dev)
+                    xs_all[idx_t] = xs.to(device=plan.store_dev, dtype=plan.store_dtype)
+                    mask_all[idx_t] = row_mask.to(plan.store_dev)
+            _count_batch(plan, nodes, table, bucket, idx)
 
     return OperatorDataset(
         xs=xs_all, row_mask=mask_all, y=np.asarray(y, dtype=np.float32)
     )
+
+
+_NODE_COUNTERS = {"host": "pos.links.host_bfs", "device": "pos.links.device_bfs",
+                  "walks": "pos.links.walks"}
+
+
+def _count_batch(plan: PosPlan, nodes: str, table: str, bucket: int, idx: np.ndarray) -> None:
+    """:func:`precompute_pos`' counters of one batch, from host numbers only."""
+    n = len(idx)
+    count("pos.batches")
+    count("pos.links", n)
+    count(_NODE_COUNTERS[nodes], n)
+    count(f"pos.links.{table}_table", n)
+    if plan.sizes is not None:
+        count("pos.slots_used", int(np.minimum(plan.sizes[idx], bucket).sum()))
+        count("pos.slots", int(bucket) * n)

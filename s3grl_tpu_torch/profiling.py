@@ -6,18 +6,62 @@ parsers/parse_profiling_data.py, their collation across seeds). The memory
 stats come from ``torch.cuda.memory_stats``, as in the reference; the
 trace is a ``torch.profiler`` trace. The JSON keeps the JAX package's
 field names, so the same parsing reads both.
+
+The program's spans and counters live here too. :func:`span` names a piece
+of the hot path on the profiler's own timeline (``record_function``), so a
+trace shows which piece the host was in while the card sat idle; it records
+only while a profiler session records and costs one check otherwise.
+:func:`count` adds to a named counter that is always kept; :func:`counters`
+gives a copy to take differences of. ``PERF.md`` lists every span and counter
+and the benchmark metric that reads it; :func:`torch_trace` writes the spans
+and the card's kernels into one Chrome trace.
 """
 from __future__ import annotations
 
 import json
 import os
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Optional
 
 import numpy as np
 import torch
 
 _MB = 1.0 / (1024 * 1024)
+
+_NULL_SPAN = nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+_COUNTERS: dict = {}
+
+
+def span(name: str):
+    """A context that marks ``name`` on the profiler's timeline: a
+    ``record_function`` while a ``torch.profiler`` (or autograd profiler)
+    session records, else one shared null context, so a span site costs a
+    check of the profiler's state and nothing more. There is no switch:
+    tracing is on exactly when a profiler records. ``name`` is a stable
+    string drawn from a small set (a bucket or a route at most), so a trace
+    keeps few distinct names.
+
+    Keep spans outside any CUDA-graph capture: a captured region replays
+    without the host, so a span inside one would mark nothing on replay. A
+    captured training step keeps ``fit.step`` around the replay, not inside
+    the capture."""
+    if _recording():
+        return torch.autograd.profiler.record_function(name)
+    return _NULL_SPAN
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``. Called once per call, plan, batch
+    or step, never per element, and only with numbers already on the host:
+    a counter never waits for the card or copies from it."""
+    _COUNTERS[name] = _COUNTERS.get(name, 0) + int(n)
+
+
+def counters() -> dict:
+    """A copy of every counter of this process; a reader takes the
+    difference of two copies."""
+    return dict(_COUNTERS)
 
 
 def device_memory_stats(device=None) -> dict:
@@ -65,7 +109,8 @@ def model_size_mb(params) -> float:
 def torch_trace(log_dir: Optional[str]):
     """A ``torch.profiler`` trace of the CPU and the card, written to
     ``log_dir`` as a Chrome trace when the block ends; nothing when
-    ``log_dir`` is empty."""
+    ``log_dir`` is empty. The program's spans (:func:`span`) and the card's
+    kernels lie on its one timeline."""
     if not log_dir:
         yield
         return

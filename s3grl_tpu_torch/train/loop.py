@@ -10,6 +10,12 @@ The shuffle comes from ``np.random.default_rng(seed)``, so the port draws
 the JAX package's batch order. The last batch is padded with index 0 and
 loss weight 0; the padded rows still enter the BatchNorm statistics, as
 there.
+
+Spans (``profiling.span``): ``fit.setup`` (datasets to the device, the
+model, the optimizer), ``fit.epoch`` (one epoch with its evaluation),
+``fit.step`` (one optimizer step), ``fit.epoch_read`` (the epoch's one host
+read of its loss), ``fit.eval`` (an evaluation) and ``fit.auc`` (its
+metric on the host). Counters: ``fit.steps``, ``fit.evals``.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 
 from s3grl_tpu_torch.models.signnet import SIGNNet
 from s3grl_tpu_torch.operators.common import OperatorDataset
+from s3grl_tpu_torch.profiling import count, span
 from s3grl_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint, saved_epochs
 from s3grl_tpu_torch.train.metrics import evaluate_auc
 from s3grl_tpu_torch.utils.device import resolve_device
@@ -127,31 +134,35 @@ def fit_signnet(
             torch.as_tensor(np.asarray(ds.y, dtype=np.float32)).to(dev),
         )
 
-    x_tr, m_tr, y_tr = to_dev(train_ds)
-    x_va, m_va, y_va = to_dev(val_ds)
-    x_te, m_te, y_te = to_dev(test_ds)
-    L = x_tr.shape[0]
-    _, O, _, F = x_tr.shape
+    with span("fit.setup"):
+        x_tr, m_tr, y_tr = to_dev(train_ds)
+        x_va, m_va, y_va = to_dev(val_ds)
+        x_te, m_te, y_te = to_dev(test_ds)
+        L = x_tr.shape[0]
+        _, O, _, F = x_tr.shape
 
-    model = SIGNNet(
-        O * F, hidden_channels, num_layers, dropout=dropout,
-        pool_operatorwise=pool_operatorwise, k_heuristic=k_heuristic,
-        k_pool_strategy=k_pool_strategy, generator=init_gen,
-    ).to(dev)
-    opt = make_optimizer(model.parameters(), lr)
-    n_params = sum(p.numel() for p in model.parameters())
+        model = SIGNNet(
+            O * F, hidden_channels, num_layers, dropout=dropout,
+            pool_operatorwise=pool_operatorwise, k_heuristic=k_heuristic,
+            k_pool_strategy=k_pool_strategy, generator=init_gen,
+        ).to(dev)
+        opt = make_optimizer(model.parameters(), lr)
+        n_params = sum(p.numel() for p in model.parameters())
 
-    steps = (L + batch_size - 1) // batch_size
-    L_pad = steps * batch_size
-    w_full = torch.zeros(L_pad, dtype=torch.float32, device=dev)
-    w_full[:L] = 1.0
+        steps = (L + batch_size - 1) // batch_size
+        L_pad = steps * batch_size
+        w_full = torch.zeros(L_pad, dtype=torch.float32, device=dev)
+        w_full[:L] = 1.0
 
     def step(loss_of) -> torch.Tensor:
-        opt.zero_grad(set_to_none=True)
-        loss, weight = loss_of()
-        loss.backward()
-        opt.step()
-        return loss.detach() * weight
+        with span("fit.step"):
+            opt.zero_grad(set_to_none=True)
+            loss, weight = loss_of()
+            loss.backward()
+            opt.step()
+            out = loss.detach() * weight
+        count("fit.steps")
+        return out
 
     def train_epoch(perm_pad: torch.Tensor) -> torch.Tensor:
         total = torch.zeros((), device=dev)
@@ -212,11 +223,16 @@ def fit_signnet(
 
     def evaluate():
         """(results, inference seconds) of the model on valid and test."""
-        val_pred = predict_all(x_va, m_va)
-        t1 = time.perf_counter()
-        test_pred = predict_all(x_te, m_te)
-        t_inf = time.perf_counter() - t1
-        return eval_fn(val_pred, np.asarray(val_ds.y), test_pred, np.asarray(test_ds.y)), t_inf
+        with span("fit.eval"):
+            val_pred = predict_all(x_va, m_va)
+            t1 = time.perf_counter()
+            test_pred = predict_all(x_te, m_te)
+            t_inf = time.perf_counter() - t1
+            with span("fit.auc"):
+                results = eval_fn(val_pred, np.asarray(val_ds.y), test_pred,
+                                  np.asarray(test_ds.y))
+        count("fit.evals")
+        return results, t_inf
 
     # Checkpointed resume (reference: sgrl_link_pred.py:1328-1338).
     start_epoch = 1
@@ -244,36 +260,38 @@ def fit_signnet(
     train_times, inference_times = [], []
     model.train()
     for epoch in range(start_epoch, start_epoch + epochs):
-        t0 = time.perf_counter()
-        if pairwise:
-            pperm = pos_idx_np[rng.permutation(len(pos_idx_np))]
-            npad = p_steps * neg_bsz
-            nperm = neg_idx_np[
-                rng.permutation(len(neg_idx_np))[:npad]
-                if len(neg_idx_np) >= npad
-                else rng.choice(len(neg_idx_np), npad)
-            ]
-            if len(pperm) < p_steps * batch_size:
-                pperm = np.concatenate([pperm, pperm[: p_steps * batch_size - len(pperm)]])
-            loss_sum = train_epoch_pairwise(
-                torch.as_tensor(pperm, device=dev), torch.as_tensor(nperm, device=dev)
-            )
-        else:
-            perm = rng.permutation(L)
-            perm_pad = np.concatenate([perm, np.zeros(L_pad - L, dtype=perm.dtype)])
-            loss_sum = train_epoch(torch.as_tensor(perm_pad, device=dev))
-        total = float(loss_sum)  # host read: the epoch's work has finished
-        train_times.append(time.perf_counter() - t0)
+        with span("fit.epoch"):
+            t0 = time.perf_counter()
+            if pairwise:
+                pperm = pos_idx_np[rng.permutation(len(pos_idx_np))]
+                npad = p_steps * neg_bsz
+                nperm = neg_idx_np[
+                    rng.permutation(len(neg_idx_np))[:npad]
+                    if len(neg_idx_np) >= npad
+                    else rng.choice(len(neg_idx_np), npad)
+                ]
+                if len(pperm) < p_steps * batch_size:
+                    pperm = np.concatenate([pperm, pperm[: p_steps * batch_size - len(pperm)]])
+                loss_sum = train_epoch_pairwise(
+                    torch.as_tensor(pperm, device=dev), torch.as_tensor(nperm, device=dev)
+                )
+            else:
+                perm = rng.permutation(L)
+                perm_pad = np.concatenate([perm, np.zeros(L_pad - L, dtype=perm.dtype)])
+                loss_sum = train_epoch(torch.as_tensor(perm_pad, device=dev))
+            with span("fit.epoch_read"):
+                total = float(loss_sum)  # host read: the epoch's work has finished
+            train_times.append(time.perf_counter() - t0)
 
-        if checkpoint_training and epoch % log_steps == 0 and res_dir:
-            save_checkpoint(res_dir, run, epoch, model, opt)
+            if checkpoint_training and epoch % log_steps == 0 and res_dir:
+                save_checkpoint(res_dir, run, epoch, model, opt)
 
-        if epoch % eval_steps == 0:
-            results, t_inf = evaluate()
-            inference_times.append(t_inf)
-            results_per_epoch.append((results, t_inf))
-            if logger_hook is not None:
-                logger_hook(epoch, total / L, results)
+            if epoch % eval_steps == 0:
+                results, t_inf = evaluate()
+                inference_times.append(t_inf)
+                results_per_epoch.append((results, t_inf))
+                if logger_hook is not None:
+                    logger_hook(epoch, total / L, results)
 
     return FitResult(
         results_per_epoch=results_per_epoch,

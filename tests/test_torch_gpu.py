@@ -795,3 +795,33 @@ def test_a_failed_kernel_build_raises(monkeypatch, tmp_path):
     finally:
         _build.load.cache_clear()
     assert not [f for f in os.listdir(tmp_path) if f.endswith(".so")]
+
+
+@pytest.mark.gpu
+def test_a_span_holds_its_kernel_on_the_profilers_timeline():
+    """A span around a launch and a synchronize contains that kernel's
+    device interval: the program's spans and the card's kernels share the
+    profiler's clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from s3grl_tpu_torch.profiling import span
+
+    dev = _cuda("the card's timeline")
+    a = torch.randn(2048, 2048, device=dev)
+    (a @ a).sum().item()  # warm: the library's first call is not profiled
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with span("pos.kernel"):
+            b = a @ a
+            torch.cuda.synchronize()
+    events = prof.events()
+    spans = [e for e in events if e.name == "pos.kernel" and e.device_type != DeviceType.CUDA]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    assert len(spans) == 1 and kernels, [e.name for e in events]
+    s = spans[0].time_range
+    for k in kernels:
+        assert s.start <= k.time_range.start <= k.time_range.end <= s.end, (k.name, s, k.time_range)
+    del b
+
