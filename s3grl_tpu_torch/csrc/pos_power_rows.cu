@@ -45,6 +45,10 @@
 //    columns KR..KRP-1 zero (KRP = KR rounded up to 8). Step k reads H_{k-1}
 //    from shared memory where two [S, R] buffers fit, else back from h,
 //    which this block has just written (L1 and L2 hits).
+//    Where a batch has too few subgraphs to fill the card
+//    (ops/pos_kernel.selector_row_blocks), the same phase runs split over
+//    (row block, subgraph) instead, with the same h: see
+//    pos_selector_table_kernel.
 // 2. The X pass reads X once for all (k, r) pairs, with f32 FMA (no TF32),
 //    in one of two kernels chosen by K·R:
 //    - K·R <= 32 (PoS, R = 2: bound by bytes): pos_xpass_kernel streams X.
@@ -359,6 +363,267 @@ pos_selector_rows_kernel(const int* __restrict__ sel,      // [B, R]
   }
 }
 
+// The selector split over (row block, subgraph), for a batch of fewer
+// subgraphs than the card has SMs: block (p, b) owns the rows s = p + P·t
+// of subgraph b, so P blocks share each subgraph's table. Three launches
+// and K steps, in order on one stream, give the h of the kernel above:
+//
+// 1. pos_selector_table_kernel reads each of its rows once (a warp a row,
+//    load_chunks and resolve as above) and writes the row's resolved
+//    entries (slot, w) in table order to the row's own region of the list
+//    [B, S, D] int2 at s·D, its count to rcnt and its coldeg (the same
+//    warp sum) to cdeg. Then one warp of the block walks the block's
+//    entries in a fixed order (rows by t, entries in table order) and sums
+//    their weights into the block's shared rowdeg partial, lanes that name
+//    one slot adding in lane order: the sums repeat bit for bit, weights
+//    of any value. One plain store a slot writes the partial to
+//    rpart [B, P, S]; there are no global atomics.
+// 2. pos_selector_degree_kernel sums the P partials of each slot in the
+//    order p = 0..P-1 and turns both degrees into their inverse square
+//    roots (0 for a zero degree), in place for cdeg.
+// 3. pos_selector_step_kernel, once for each k = 1..K: a group of kGroup
+//    lanes a row, every chunk of kRowChunk selector rows in turn, each
+//    lane summing every kGroup-th entry of the row and the group's sums
+//    added in the same fixed tree as above. Step 1 scales each entry once
+//    to ŵ as it reads it; step k >= 2 reads H_{k-1} back from h.
+//
+// With weights that are small integers (the 0/1 of an unweighted graph)
+// every sum above is exact, coldeg is the same warp sum and each row's
+// H_k the same lanes over the same entries in the same order and tree, so
+// h equals the one-block kernel's bit for bit.
+constexpr int kWalk = 8;   // entries a lane loads at once in the rowdeg walk
+constexpr int kBatch = 4;  // entries a lane loads at once in a step
+
+// Rows of block p of P over S rows: s = p + P·t for t < rows_of(...).
+__host__ __device__ __forceinline__ int rows_of(int S, int P, int p) {
+  return (S - p + P - 1) / P;
+}
+
+__global__ void __launch_bounds__(kThreads1)
+pos_selector_table_kernel(const int* __restrict__ nbr,      // [B, S, D]
+                          const float* __restrict__ w,      // [B, S, D], or null (local slots)
+                          const int* __restrict__ row_ids,  // [B, S] or null (slot iota)
+                          float* __restrict__ h,            // [B, S, KRP]: zero columns KR..
+                          int2* __restrict__ list,          // [B, S, D] (slot, w)
+                          int* __restrict__ rcnt,           // [B, S] entries of row s
+                          float* __restrict__ cdeg,         // [B, S] coldeg
+                          float* __restrict__ rpart,        // [B, P, S] rowdeg partials
+                          int S, int D, int KR, int KRP, int P, int log_t) {
+  extern __shared__ int4 smem_i4[];
+  const bool has_ids = row_ids != nullptr;
+  const int p = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_hash = has_ids ? 1 << log_t : 0;
+  const int T = rows_of(S, P, p);
+
+  float* rdeg = reinterpret_cast<float*>(smem_i4);  // [S]
+  int* rpre = reinterpret_cast<int*>(rdeg + S);     // [T + 1] first entry of row t
+  int* hkeys = rpre + rows_of(S, P, 0) + 1;         // [n_hash] row ids, -1 empty
+  int* hslots = hkeys + n_hash;                     // [n_hash]
+
+  const int64_t row0 = static_cast<int64_t>(b) * S;
+  const int* nbr_b = nbr + row0 * D;
+  const float* w_b = w != nullptr ? w + row0 * D : nullptr;
+  int2* list_b = list + row0 * D;
+
+  for (int i = tid; i < S; i += kThreads1) rdeg[i] = 0.f;
+  for (int i = tid; i < n_hash; i += kThreads1) hkeys[i] = -1;
+  if (tid == 0) rpre[0] = 0;
+  const int pad = KRP - KR;  // zero columns of h
+  for (int i = tid; i < T * pad; i += kThreads1)
+    h[(row0 + p + static_cast<int64_t>(P) * (i / pad)) * KRP + KR + i % pad] = 0.f;
+  __syncthreads();
+  if (has_ids) {  // row ids are unique, so each one claims its own cell
+    for (int j = tid; j < S; j += kThreads1) {
+      const int id = row_ids[row0 + j];
+      if (id < 0) continue;
+      for (int q = hash_of(id, log_t);; q = (q + 1) & (n_hash - 1)) {
+        if (atomicCAS(&hkeys[q], -1, id) == -1) {
+          hslots[q] = j;
+          break;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // The one pass over the block's rows: a warp a row, each entry read once
+  // and written to its place at once, in table order.
+  for (int t = warp; t < T; t += kWarps1) {
+    const int s = p + P * t;
+    int n = 0;
+    float cd = 0.f;
+    const int* nrow = nbr_b + static_cast<int64_t>(s) * D;
+    const float* wrow = w_b != nullptr ? w_b + static_cast<int64_t>(s) * D : nullptr;
+    int2* out = list_b + static_cast<int64_t>(s) * D;
+    for (int d0 = 0; d0 < D; d0 += 32 * kChunks) {
+      int l[kChunks];
+      float wt[kChunks];
+      load_chunks(nrow, wrow, D, d0, lane, hkeys, hslots, S, has_ids, log_t, wt, l);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        if (d0 + c * 32 >= D) break;  // the same in every lane
+        const unsigned hit = __ballot_sync(kFull, l[c] >= 0);
+        if (l[c] >= 0) {
+          out[n + __popc(hit & ((1u << lane) - 1u))] = make_int2(l[c], __float_as_int(wt[c]));
+          cd += wt[c];
+        }
+        n += __popc(hit);
+      }
+    }
+    cd = warp_sum(cd);
+    if (lane == 0) {
+      rcnt[row0 + s] = n;
+      cdeg[row0 + s] = cd;
+      rpre[t + 1] = n;
+    }
+  }
+  __syncthreads();
+
+  // The block's rowdeg partial, summed by warp 0 alone in a fixed order.
+  if (warp == 0) {
+    int total = 0;  // rpre[t] becomes the first entry of row t
+    for (int t0 = 0; t0 < T; t0 += 32) {
+      int v = t0 + lane < T ? rpre[t0 + lane + 1] : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(kFull, v, o);
+        if (lane >= o) v += u;
+      }
+      if (t0 + lane < T) rpre[t0 + lane + 1] = total + v;
+      total += __shfl_sync(kFull, v, 31);
+    }
+    __syncwarp();
+    for (int f0 = 0; f0 < total; f0 += 32 * kWalk) {
+      int2 e[kWalk];
+#pragma unroll
+      for (int u = 0; u < kWalk; ++u) {
+        const int f = f0 + u * 32 + lane;
+        e[u] = make_int2(-1, 0);
+        if (f < total) {
+          int lo = 0, hi = T - 1;  // the last row t with rpre[t] <= f
+          while (lo < hi) {
+            const int mid = (lo + hi + 1) >> 1;
+            if (rpre[mid] <= f) lo = mid; else hi = mid - 1;
+          }
+          e[u] = list_b[static_cast<int64_t>(p + P * lo) * D + (f - rpre[lo])];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kWalk; ++u) {
+        const int j = e[u].x;
+        const unsigned peers = __match_any_sync(kFull, j);
+        const int rank = __popc(peers & ((1u << lane) - 1u));
+        const int rounds = __reduce_max_sync(kFull, j >= 0 ? __popc(peers) : 0);
+        for (int r = 0; r < rounds; ++r) {
+          if (j >= 0 && rank == r) rdeg[j] += __int_as_float(e[u].y);
+          __syncwarp();
+        }
+      }
+    }
+  }
+  __syncthreads();
+  float* part = rpart + (row0 * P + static_cast<int64_t>(p) * S);
+  for (int i = tid; i < S; i += kThreads1) part[i] = rdeg[i];
+}
+
+__global__ void pos_selector_degree_kernel(const float* __restrict__ rpart,  // [B, P, S]
+                                           float* __restrict__ rdeg,         // [B, S] out
+                                           float* __restrict__ cdeg,         // [B, S] in place
+                                           int S, int P) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= S) return;
+  const int64_t bs = static_cast<int64_t>(blockIdx.y) * S + j;
+  const float* part = rpart + static_cast<int64_t>(blockIdx.y) * P * S + j;
+  float sum = 0.f;
+  for (int q = 0; q < P; ++q) sum += part[static_cast<int64_t>(q) * S];
+  rdeg[bs] = sum > 0.f ? rsqrtf(sum) : 0.f;
+  const float c = cdeg[bs];
+  cdeg[bs] = c > 0.f ? rsqrtf(c) : 0.f;
+}
+
+template <int kRowChunk>
+__global__ void __launch_bounds__(kThreads1)
+pos_selector_step_kernel(const int* __restrict__ sel,    // [B, R]
+                         int2* __restrict__ list,        // [B, S, D]; ŵ after step 1
+                         const int* __restrict__ rcnt,   // [B, S]
+                         const float* __restrict__ rdeg, // [B, S] rowdeg^-1/2
+                         const float* __restrict__ cdeg, // [B, S] coldeg^-1/2
+                         float* h,                       // [B, S, KRP]
+                         int S, int D, int R, int KRP, int P, int k) {
+  const int p = blockIdx.x;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q = lane % kGroup;
+  const int n_groups = kThreads1 / kGroup;
+  const int T = rows_of(S, P, p);
+  const int64_t row0 = static_cast<int64_t>(b) * S;
+  float* h_b = h + row0 * KRP;
+  const float* src = h_b + (k >= 2 ? (k - 2) * R : 0);  // H_{k-1}[r, l] at src[l * KRP + r]
+  float* hk = h_b + (k - 1) * R;
+  // t0 is the same in every lane of a warp, so the shuffles see all 32.
+  for (int t0 = warp * (32 / kGroup); t0 < T; t0 += n_groups) {
+    const int t = t0 + lane / kGroup;
+    const bool act = t < T;
+    const int s = act ? p + P * t : 0;
+    const int e = act ? rcnt[row0 + s] : 0;
+    const float c = act ? cdeg[row0 + s] : 0.f;
+    int2* row = list + (row0 + s) * D;
+    for (int r0 = 0; r0 < R; r0 += kRowChunk) {
+      int selr[kRowChunk];
+#pragma unroll
+      for (int j = 0; j < kRowChunk; ++j)
+        selr[j] = r0 + j < R ? sel[static_cast<int64_t>(b) * R + r0 + j] : -1;
+      const bool scale = k == 1 && r0 == 0;  // this lane's first read of its entries
+      float acc[kRowChunk];
+#pragma unroll
+      for (int j = 0; j < kRowChunk; ++j) acc[j] = 0.f;
+      for (int i = q; i < e; i += kGroup * kBatch) {
+        int2 v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          v[u] = i + u * kGroup < e ? row[i + u * kGroup] : make_int2(0, 0);
+        float wn[kBatch];
+        float prev[kBatch][kRowChunk];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const bool live = i + u * kGroup < e;
+          wn[u] = __int_as_float(v[u].y);
+          if (scale && live) {
+            wn[u] = (wn[u] * rdeg[row0 + v[u].x]) * c;
+            row[i + u * kGroup].y = __float_as_int(wn[u]);
+          }
+#pragma unroll
+          for (int j = 0; j < kRowChunk; ++j)
+            prev[u][j] = !live || r0 + j >= R ? 0.f
+                         : k == 1 ? (v[u].x == selr[j] ? 1.f : 0.f)
+                                  : src[static_cast<int64_t>(v[u].x) * KRP + r0 + j];
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (i + u * kGroup >= e) break;
+#pragma unroll
+          for (int j = 0; j < kRowChunk; ++j)
+            if (r0 + j < R) acc[j] = fmaf(wn[u], prev[u][j], acc[j]);
+        }
+      }
+#pragma unroll
+      for (int o = kGroup / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int j = 0; j < kRowChunk; ++j) acc[j] += __shfl_xor_sync(kFull, acc[j], o);
+      if (q == 0 && act) {
+#pragma unroll
+        for (int j = 0; j < kRowChunk; ++j)
+          if (r0 + j < R) hk[static_cast<int64_t>(s) * KRP + r0 + j] = acc[j];
+      }
+    }
+  }
+}
+
 template <int VEC>
 struct Vec;
 template <>
@@ -636,6 +901,47 @@ int s3grl_pos_selector_rows(const int* sel, const int* nbr, const float* w,
       sel, nbr, w, row_ids, h, static_cast<int2*>(spill), S, D, R, K,
       s3grl_pos_h_width(R, K), cap, hash_log(S), h_in_smem);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of dynamic shared memory of the split selector's table kernel at P
+// row blocks a subgraph.
+int64_t s3grl_pos_selector_split_smem(int S, int has_ids, int P) {
+  int64_t bytes = 4 * (static_cast<int64_t>(S) + rows_of(S, P, 0) + 1);
+  if (has_ids) bytes += 8 * (int64_t{1} << hash_log(S));
+  return bytes;
+}
+
+// Phase 1 split over P row blocks a subgraph, on `stream`: the table pass,
+// the degrees, then the K steps (see pos_selector_table_kernel). Scratch:
+// list [B, S, D] int2, rcnt [B, S] int, degs [2, B, S] float (rowdeg^-1/2,
+// then coldeg), rpart [B, P, S] float. Returns the first launch's
+// cudaError_t that is not success, or 0.
+int s3grl_pos_selector_split(const int* sel, const int* nbr, const float* w,
+                             const int* row_ids, float* h, void* list, int* rcnt,
+                             float* degs, float* rpart, int B, int S, int D, int R, int K,
+                             int P, int64_t smem_bytes, void* stream) {
+  if (B > 65535 || P < 1 || P > S) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int KRP = s3grl_pos_h_width(R, K);
+  int2* lst = static_cast<int2*>(list);
+  float* rdeg = degs;
+  float* cdeg = degs + static_cast<int64_t>(B) * S;
+  cudaError_t err = cudaFuncSetAttribute(pos_selector_table_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(P, B);
+  pos_selector_table_kernel<<<grid, kThreads1, smem_bytes, st>>>(
+      nbr, w, row_ids, h, lst, rcnt, cdeg, rpart, S, D, K * R, KRP, P, hash_log(S));
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  pos_selector_degree_kernel<<<dim3((S + 255) / 256, B), 256, 0, st>>>(rpart, rdeg, cdeg, S, P);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  auto step = R <= 2 ? pos_selector_step_kernel<2> : pos_selector_step_kernel<8>;
+  for (int k = 1; k <= K; ++k) {
+    step<<<grid, kThreads1, 0, st>>>(sel, lst, rcnt, rdeg, cdeg, h, S, D, R, KRP, P, k);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 // Phase 2 on `stream` (h may be null when K = 0); returns the cudaError_t.

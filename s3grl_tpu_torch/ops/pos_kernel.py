@@ -22,8 +22,11 @@ ignored.
 On the card one call makes two launches on the current stream
 (``csrc/pos_power_rows.cu``): the selector rows ``H [B, K·R, S]`` from one
 pass over the table (:func:`pos_selector_rows`), then one pass over X that
-forms every output row. ``pos_power_rows_reference`` is the same split in
-plain torch: :func:`pos_selector_rows_reference`, then the product.
+forms every output row. Where a batch has too few subgraphs to fill the
+card, the selector phase is split over (row block, subgraph) instead
+(:func:`selector_row_blocks`): a table pass, the degrees and one launch a
+step, with the same result. ``pos_power_rows_reference`` is the same split
+in plain torch: :func:`pos_selector_rows_reference`, then the product.
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
 launch the kernels or raise.
@@ -31,10 +34,12 @@ launch the kernels or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
+from s3grl_tpu_torch import profiling
 from s3grl_tpu_torch.ops import _build
 from s3grl_tpu_torch.utils.device import Work
 
@@ -177,6 +182,12 @@ def _lib() -> ctypes.CDLL:
             p, p, p, p, p, p, i32, i32, i32, i32, i32, i32, i32, i64, p,
         ]
         lib.s3grl_pos_selector_rows.restype = i32
+        lib.s3grl_pos_selector_split_smem.argtypes = [i32, i32, i32]
+        lib.s3grl_pos_selector_split_smem.restype = i64
+        lib.s3grl_pos_selector_split.argtypes = [
+            p, p, p, p, p, p, p, p, p, i32, i32, i32, i32, i32, i32, i64, p,
+        ]
+        lib.s3grl_pos_selector_split.restype = i32
         lib.s3grl_pos_xpass.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, p]
         lib.s3grl_pos_xpass.restype = i32
         lib.s3grl_cuda_error_string.argtypes = [i32]
@@ -209,13 +220,89 @@ def _check_table(sel_idx, nbr, w, row_ids, sign_k, dev):
     return B, S, D, R
 
 
-def _selector_rows_cuda(lib, sel_idx, nbr, w, row_ids, sign_k, B, S, D, R):
-    """Launch the selector kernel; return its scratch h [B, S, KRP]."""
+# The least S at which the selector is split over row blocks. At S <= 512
+# one block a subgraph beats the split's five launches on narrow tables
+# (USAir's), and only hub-width tables reach 2-hop sets of 1,024 nodes,
+# where the split wins at every B (the sweep in PERF.md §6).
+SPLIT_MIN_S = 1024
+# The fewest rows a row block of the split selector keeps.
+SPLIT_MIN_ROWS = 32
+
+
+def selector_row_blocks(B: int, S: int, sms: int) -> int:
+    """P, the row blocks that share each subgraph's table in the selector
+    phase, for a batch of B subgraphs of S slots on a card of ``sms`` SMs.
+
+    1 (one block a subgraph, ``pos_selector_rows_kernel``) where the batch
+    fills the card by itself (B >= sms) or S < :data:`SPLIT_MIN_S`. Else
+    the least power of two with B·P >= 2·sms, halved while a block would
+    keep fewer than :data:`SPLIT_MIN_ROWS` rows."""
+    if B >= sms or S < SPLIT_MIN_S:
+        return 1
+    P = 1
+    while B * P < 2 * sms:
+        P *= 2
+    while P > 1 and S // P < SPLIT_MIN_ROWS:
+        P //= 2
+    return P
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _count_selector_call(B: int, P: int, sms: int) -> None:
+    """The selector's counters, host integers only: calls, split calls, the
+    blocks that run at once (at most one an SM) and the card's SMs."""
+    profiling.count("pos.selector.calls")
+    profiling.count("pos.selector.split_calls", P > 1)
+    profiling.count("pos.selector.blocks", min(B * P, sms))
+    profiling.count("pos.selector.sm_slots", sms)
+    if P > 1:
+        pos_selector_rows.split_launches += 1
+
+
+def _selector_split_cuda(lib, sel_idx, nbr, w, row_ids, sign_k, B, S, D, R, P, h):
+    """Launch the selector split over P row blocks a subgraph into h."""
+    dev = nbr.device
+    has_ids = row_ids is not None
+    smem = lib.s3grl_pos_selector_split_smem(S, int(has_ids), P)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"S={S} needs {smem} bytes of shared memory")
+    entries = torch.empty((B, S, D, 2), dtype=torch.int32, device=dev)
+    rcnt = torch.empty((B, S), dtype=torch.int32, device=dev)
+    degs = torch.empty((2, B, S), dtype=torch.float32, device=dev)
+    rpart = torch.empty((B, P, S), dtype=torch.float32, device=dev)
+    err = lib.s3grl_pos_selector_split(
+        sel_idx.data_ptr(), nbr.data_ptr(), w.data_ptr() if w is not None else None,
+        row_ids.data_ptr() if has_ids else None, h.data_ptr(), entries.data_ptr(),
+        rcnt.data_ptr(), degs.data_ptr(), rpart.data_ptr(),
+        B, S, D, R, sign_k, P, smem, _stream(dev),
+    )
+    _raise_on(lib, err, "pos_selector_rows (split)")
+
+
+def _selector_rows_cuda(lib, sel_idx, nbr, w, row_ids, sign_k, B, S, D, R, row_blocks=None):
+    """Launch the selector phase; return its scratch h [B, S, KRP].
+    ``row_blocks`` forces P (tests); None takes :func:`selector_row_blocks`."""
     dev = nbr.device
     krp = lib.s3grl_pos_h_width(R, sign_k)
     if max(B, S * D, S * krp) >= 2**31:
         raise ValueError("shape too large for the kernel's int32 indexing")
     h = torch.empty((B, S, krp), dtype=torch.float32, device=dev)
+    sms = _sm_count(dev)
+    P = selector_row_blocks(B, S, sms) if row_blocks is None else row_blocks
+    if not 1 <= P <= S:
+        raise ValueError(f"row blocks must lie in [1, S={S}], got {P}")
+    if P > 1:
+        _selector_split_cuda(lib, sel_idx, nbr, w, row_ids, sign_k, B, S, D, R, P, h)
+        _count_selector_call(B, P, sms)
+        return h
     has_ids = row_ids is not None
     cap = lib.s3grl_pos_list_cap(S, D)
     spill = None
@@ -232,10 +319,10 @@ def _selector_rows_cuda(lib, sel_idx, nbr, w, row_ids, sign_k, B, S, D, R):
         sel_idx.data_ptr(), nbr.data_ptr(), w.data_ptr() if w is not None else None,
         row_ids.data_ptr() if has_ids else None,
         h.data_ptr(), spill.data_ptr() if spill is not None else None,
-        B, S, D, R, sign_k, cap, h_in_smem, smem,
-        torch.cuda.current_stream(dev).cuda_stream,
+        B, S, D, R, sign_k, cap, h_in_smem, smem, _stream(dev),
     )
     _raise_on(lib, err, "pos_selector_rows")
+    _count_selector_call(B, P, sms)
     return h
 
 
@@ -252,7 +339,8 @@ def pos_selector_rows(
     CPU tensors go to ``pos_selector_rows_reference``. CUDA tensors launch
     the selector kernel on the current stream; anything it does not take
     raises. ``pos_selector_rows.launches`` counts these calls (not the
-    launches that ``pos_power_rows`` makes).
+    launches that ``pos_power_rows`` makes); ``pos_selector_rows.split_launches``
+    counts the selector phases of both that were split over row blocks.
     """
     dev = nbr.device
     if dev.type == "cpu":
@@ -269,6 +357,7 @@ def pos_selector_rows(
 
 
 pos_selector_rows.launches = 0
+pos_selector_rows.split_launches = 0  # selector phases split over row blocks (P > 1)
 
 
 def pos_power_rows(
@@ -312,8 +401,7 @@ def pos_power_rows(
         h = _selector_rows_cuda(lib, sel_idx, nbr, w, row_ids, sign_k, B, S, D, R)
     err = lib.s3grl_pos_xpass(
         sel_idx.data_ptr(), subg_x.data_ptr(), h.data_ptr() if h is not None else None,
-        out.data_ptr(), B, S, F, R, sign_k,
-        torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), B, S, F, R, sign_k, _stream(dev),
     )
     _raise_on(lib, err, "pos_power_rows X pass")
     pos_power_rows.launches += 1

@@ -825,3 +825,112 @@ def test_a_span_holds_its_kernel_on_the_profilers_timeline():
         assert s.start <= k.time_range.start <= k.time_range.end <= s.end, (k.name, s, k.time_range)
     del b
 
+
+
+# The selector split over (row block, subgraph): shapes of the main path's
+# batches that leave SMs idle (BlogCatalog's S = 4,096 on its 2,912-wide
+# global table, the card-built hub tables at cap 1,024), PoS+ rows, and
+# edge cases. P is the rule's on an H100 (132 SMs) unless given.
+SPLIT_CASES = {
+    "global-B8": dict(B=8, S=4096, D=2912, R=2, mode="global"),
+    "global-B1": dict(B=1, S=4096, D=2912, R=2, mode="global"),
+    "global-B3": dict(B=3, S=4096, D=2912, R=2, mode="global"),
+    "local-slots-w-none": dict(B=64, S=1024, D=1024, R=2, mode="local", no_weights=True),
+    "pos-plus-R34": dict(B=4, S=2048, D=512, R=34, mode="global"),
+    "S-not-a-multiple": dict(B=5, S=1000, D=40, R=3, mode="global", P=16),
+    "rows-without-entries": dict(B=4, S=1024, D=64, R=2, mode="local", empty_rows=True, P=8),
+}
+
+
+def _split_case(name, dev):
+    """(sel, nbr, w, row_ids, P) on the card for SPLIT_CASES[name]."""
+    from s3grl_tpu_torch.ops.pos_kernel import selector_row_blocks
+
+    c = dict(SPLIT_CASES[name])
+    P = c.pop("P", None) or selector_row_blocks(c["B"], c["S"], 132)
+    no_weights, empty_rows = c.pop("no_weights", False), c.pop("empty_rows", False)
+    sel, nbr, w, _, row_ids = kernel_inputs(6, F=1, **c)
+    if no_weights:  # a card-built table: slots where live, -1 elsewhere
+        nbr, w = np.where(w > 0, nbr, -1).astype(np.int32), None
+    if empty_rows:  # every third row and the whole first subgraph
+        w[:, ::3] = 0.0
+        w[0] = 0.0
+    t = [None if a is None else torch.as_tensor(a, device=dev) for a in (sel, nbr, w, row_ids)]
+    return (*t, P)
+
+
+def _selector_h(sel, nbr, w, row_ids, sign_k, P):
+    from s3grl_tpu_torch.ops.pos_kernel import _lib, _selector_rows_cuda
+
+    B, S, D = nbr.shape
+    h = _selector_rows_cuda(_lib(), sel, nbr, w, row_ids, sign_k, B, S, D, sel.shape[1],
+                            row_blocks=P)
+    torch.cuda.synchronize()
+    return h
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sign_k", [1, 3])
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_selector_equals_the_one_block_kernel_bit_for_bit(name, sign_k):
+    """On 0/1 weights the split selector's h equals the one-block kernel's
+    bit for bit (its zero columns included), and H matches the plain
+    version."""
+    dev = _cuda()
+    sel, nbr, w, row_ids, P = _split_case(name, dev)
+    assert P > 1
+    before = pos_selector_rows.split_launches
+    got = _selector_h(sel, nbr, w, row_ids, sign_k, P)
+    assert pos_selector_rows.split_launches == before + 1
+    want = _selector_h(sel, nbr, w, row_ids, sign_k, 1)
+    assert pos_selector_rows.split_launches == before + 1
+    assert torch.equal(got, want)
+    kr = sign_k * sel.shape[1]
+    assert not got[:, :, kr:].any()
+    ref = pos_selector_rows_reference(sel, nbr, w, sign_k=sign_k, row_ids=row_ids)
+    torch.testing.assert_close(got[:, :, :kr].transpose(1, 2), ref, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["global", "local"])
+def test_split_selector_repeats_bit_for_bit_with_general_weights(mode):
+    """Weights that are no small integers (and rows that name one slot more
+    than once): two runs of the split selector give the same bits, and H
+    matches the plain version."""
+    dev = _cuda()
+    sel, nbr, w, _, row_ids = kernel_inputs(7, B=4, S=2048, D=256, F=1, R=2, mode=mode)
+    w = w * np.random.default_rng(8).uniform(0.05, 3.0, w.shape).astype(np.float32)
+    t = [None if a is None else torch.as_tensor(a, device=dev) for a in (sel, nbr, w, row_ids)]
+    first = _selector_h(*t, 3, 64)
+    for _ in range(3):
+        assert torch.equal(_selector_h(*t, 3, 64), first)
+    ref = pos_selector_rows_reference(*t[:3], sign_k=3, row_ids=t[3])
+    torch.testing.assert_close(first[:, :, :6].transpose(1, 2), ref, **TOL)
+
+
+@pytest.mark.gpu
+def test_pos_power_rows_split_equals_the_one_block_path_on_the_hub(monkeypatch):
+    """``pos_power_rows`` on a BlogCatalog-shaped batch (B = 8 at S = 4,096
+    on the 3,392-wide global table) takes the split selector by the rule,
+    and its output equals the one-block path's bit for bit."""
+    from s3grl_tpu_torch import profiling
+    from s3grl_tpu_torch.operators.pos import global_kernel_inputs
+    from s3grl_tpu_torch.ops import pos_kernel as pk
+
+    dev = _cuda()
+    dg, links, nd = _hub_batch(dev, B=8, S=4096)
+    nodes = torch.as_tensor(np.where(nd >= 0, nd, 0), device=dev)
+    mask = torch.as_tensor(nd >= 0, device=dev)
+    sel, nbr, w, x, row_ids, _ = global_kernel_inputs(
+        dg, torch.as_tensor(links, device=dev), nodes, mask)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert pk.selector_row_blocks(8, 4096, sms) > 1
+    c0 = profiling.counters()
+    got = pos_power_rows(sel, nbr, w, x, sign_k=3, row_ids=row_ids)
+    c1 = profiling.counters()
+    assert c1["pos.selector.split_calls"] - c0.get("pos.selector.split_calls", 0) == 1
+    assert c1["pos.selector.blocks"] - c0.get("pos.selector.blocks", 0) == sms
+    monkeypatch.setattr(pk, "selector_row_blocks", lambda B, S, sms: 1)
+    want = pos_power_rows(sel, nbr, w, x, sign_k=3, row_ids=row_ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
