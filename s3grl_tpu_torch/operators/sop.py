@@ -11,9 +11,10 @@ store
 and x = [[1, X[src]], [1, X[dst]]]. No sparse matrix and no SpGEMM:
 
 1. the global chain ``Y_k = Â^k X`` runs once, through the sparse SpMM
-   kernel (``ops/spmm_kernel.power_chain``) or the edge-list route
-   (``ops/spmm.spmm``), as :func:`~s3grl_tpu_torch.ops.spmm_kernel.should_use_bsr`
-   picks from the graph's shape;
+   kernel (``ops/spmm_kernel.bsr_spmm``) or the edge-list route
+   (``ops/spmm.spmm``), one ``power_chain_of`` loop either way, as
+   :func:`~s3grl_tpu_torch.ops.spmm_kernel.should_use_bsr` picks from the
+   graph's shape;
 2. per batch of links, the endpoint one-hot columns go through the chain
    by the same route, ``R_k = Â R_{k-1}``, giving the scalars Â^k[u,v] and
    Â^k[u,u];
@@ -22,6 +23,12 @@ and x = [[1, X[src]], [1, X[dst]]]. No sparse matrix and no SpGEMM:
 
 The JAX package pads the last batch to the full batch size to avoid
 recompiles; here the last batch runs ragged, with the same output.
+
+Spans (``profiling.span``): ``sop.precompute`` (one call),
+``sop.route/<csr|edges>`` (:func:`sop_route`'s build), ``sop.chain`` (the
+global chain) and ``sop.batch`` (one batch with its store). Counters:
+``sop.calls``, ``sop.links``, ``sop.batches``, and per product
+``sop.spmm.calls``, ``sop.spmm.csr_calls``, ``sop.spmm.cols``.
 """
 from __future__ import annotations
 
@@ -31,24 +38,10 @@ import numpy as np
 import torch
 
 from s3grl_tpu_torch.operators.common import OperatorDataset
-from s3grl_tpu_torch.ops.spmm import EdgeList, edge_list, normalized_adjacency_weights, spmm
-from s3grl_tpu_torch.ops.spmm_kernel import blockify, bsr_spmm, power_chain, should_use_bsr
+from s3grl_tpu_torch.ops.spmm import edge_list, normalized_adjacency_weights, spmm
+from s3grl_tpu_torch.ops.spmm_kernel import blockify, bsr_spmm, power_chain_of, should_use_bsr
+from s3grl_tpu_torch.profiling import count, span
 from s3grl_tpu_torch.sampling.extraction import DeviceGraph
-
-
-def _sop_power_features(
-    edges: EdgeList,
-    x_global: torch.Tensor,  # [N, F]
-    *,
-    sign_k: int,
-) -> torch.Tensor:
-    """Global diffusion chain Y_k = Â^k X on the edge list, stacked [K, N, F]."""
-    ys = []
-    y = x_global
-    for _ in range(sign_k):
-        y = spmm(edges, y)
-        ys.append(y)
-    return torch.stack(ys, dim=0)
 
 
 def _sop_batch(
@@ -116,18 +109,41 @@ def host_normalized_edges(dg: DeviceGraph):
     return src_h, dst_h, norm_w_h
 
 
-def sop_route(dg: DeviceGraph, src_h, dst_h, norm_w_h):
+def sop_route(dg: DeviceGraph, norm_w_h: np.ndarray | None = None):
     """(propagate, chain) of Â on the route :func:`should_use_bsr` picks
     from the graph's shape: ``propagate(Y)`` = Â Y and ``chain(X, K)`` =
     [Â X, ..., Â^K X], by ``bsr_spmm`` over the CSR form, or by the edge
     list. Both add each row's terms in a fixed order, so the results repeat
-    bit for bit on the card."""
+    bit for bit on the card. ``norm_w_h``: Â's host weights
+    (:func:`host_normalized_edges`), where the caller has them.
+
+    The route's build (Â's host weights, then ``blockify`` or
+    ``edge_list``) is the span ``sop.route/<csr|edges>``, named by the
+    route picked just before it. Each product counts ``sop.spmm.calls``,
+    its columns into ``sop.spmm.cols``, and on the kernel's route
+    ``sop.spmm.csr_calls``."""
     N = dg.num_nodes
-    if should_use_bsr(src_h, dst_h, N, int(dg.x.shape[1])):
-        adj = blockify(src_h, dst_h, norm_w_h, N, device=dg.device)
-        return (lambda y: bsr_spmm(adj, y)), (lambda x, k: power_chain(adj, x, k))
-    edges = edge_list(dg.edge_src, dg.edge_dst, torch.as_tensor(norm_w_h, device=dg.device), N)
-    return (lambda y: spmm(edges, y)), (lambda x, k: _sop_power_features(edges, x, sign_k=k))
+    src_h, dst_h, _ = dg.host_edges()
+    csr = should_use_bsr(src_h, dst_h, N, int(dg.x.shape[1]))
+    with span(f"sop.route/{'csr' if csr else 'edges'}"):
+        if norm_w_h is None:
+            _, _, norm_w_h = host_normalized_edges(dg)
+        if csr:
+            adj = blockify(src_h, dst_h, norm_w_h, N, device=dg.device)
+            product = lambda y: bsr_spmm(adj, y)  # noqa: E731
+        else:
+            edges = edge_list(dg.edge_src, dg.edge_dst,
+                              torch.as_tensor(norm_w_h, device=dg.device), N)
+            product = lambda y: spmm(edges, y)  # noqa: E731
+
+    def propagate(y: torch.Tensor) -> torch.Tensor:
+        count("sop.spmm.calls")
+        count("sop.spmm.cols", y.shape[1])
+        if csr:
+            count("sop.spmm.csr_calls")
+        return product(y)
+
+    return propagate, (lambda x, k: power_chain_of(propagate, x, k))
 
 
 def precompute_sop(
@@ -163,19 +179,25 @@ def precompute_sop(
     F = int(x_global.shape[1])
     L = links.shape[0]
     links = np.asarray(links, dtype=np.int64)
-
-    propagate, chain = sop_route(dg, *host_normalized_edges(dg))
-    ys = chain(x_global, sign_k)
-
     if batch_size <= 0:
         batch_size = sop_batch_size(N, int(dg.edge_src.shape[0]))
+    starts = range(0, L, batch_size)
+    count("sop.calls")
+    count("sop.links", L)
+    count("sop.batches", len(starts))
 
-    xs = torch.empty((L, sign_k + 1, 2, F + 1), dtype=torch.float32, device=dev)
-    for start in range(0, L, batch_size):
-        lb = torch.as_tensor(links[start : start + batch_size], device=dev)
-        xs[start : start + len(lb)] = _sop_batch(
-            propagate, x_global, ys, lb, sign_k=sign_k, num_nodes=N,
-        )
+    with span("sop.precompute"):
+        propagate, chain = sop_route(dg)
+        with span("sop.chain"):
+            ys = chain(x_global, sign_k)
+
+        xs = torch.empty((L, sign_k + 1, 2, F + 1), dtype=torch.float32, device=dev)
+        for start in starts:
+            with span("sop.batch"):
+                lb = torch.as_tensor(links[start : start + batch_size], device=dev)
+                xs[start : start + len(lb)] = _sop_batch(
+                    propagate, x_global, ys, lb, sign_k=sign_k, num_nodes=N,
+                )
 
     return OperatorDataset(
         xs=xs,

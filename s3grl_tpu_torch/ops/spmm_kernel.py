@@ -372,11 +372,17 @@ def work(adj: BlockedAdjacency | CsrMatrix, x: torch.Tensor) -> Work:
                 flops=2.0 * nnz * c)
 
 
-def power_chain(adj: BlockedAdjacency, x: torch.Tensor, sign_k: int) -> torch.Tensor:
-    """[M X, M² X, ..., M^K X] stacked [K, N, C] — the SoP global chain."""
+def power_chain_of(product, x: torch.Tensor, sign_k: int) -> torch.Tensor:
+    """[M X, M² X, ..., M^K X] stacked [K, N, C] for ``product(Y)`` = M Y
+    — the SoP global chain on any route."""
     ys = []
     y = x
     for _ in range(sign_k):
-        y = bsr_spmm(adj, y)
+        y = product(y)
         ys.append(y)
     return torch.stack(ys, dim=0)
+
+
+def power_chain(adj: BlockedAdjacency, x: torch.Tensor, sign_k: int) -> torch.Tensor:
+    """:func:`power_chain_of` by :func:`bsr_spmm` over ``adj``."""
+    return power_chain_of(lambda y: bsr_spmm(adj, y), x, sign_k)

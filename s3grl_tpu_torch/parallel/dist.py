@@ -316,7 +316,7 @@ def precompute_sop_sharded(
     links = np.asarray(links, dtype=np.int64)
     src_h, dst_h, norm_w_h = host_normalized_edges(dg)
     ys = gather_rows(mesh, dist_power_chain(mesh, src_h, dst_h, norm_w_h, dg.x, sign_k), N)
-    propagate, _ = sop_route(dg, src_h, dst_h, norm_w_h)
+    propagate, _ = sop_route(dg, norm_w_h)
 
     batch = max(sop_batch_size(N, int(dg.edge_src.shape[0])) // n, 8) * n
     runs = [[] for _ in range(n)]

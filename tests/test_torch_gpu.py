@@ -934,3 +934,52 @@ def test_pos_power_rows_split_equals_the_one_block_path_on_the_hub(monkeypatch):
     want = pos_power_rows(sel, nbr, w, x, sign_k=3, row_ids=row_ids)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# The worst relative gap of a link's SoP rows (``benchmark.cellbase.
+# worst_relative_gap``) allowed against the float64 reference: on an H100
+# (80GB HBM3, 700 W) ``precompute_sop`` read at most 1.63e-7 over 31 seeded
+# splits of the USAir-sized graph, and the same reference computed in TF32
+# read at least 1.21e-4.
+SOP_GAP = 5e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("features", ["one_hot_degree", "normal_16"])
+def test_precompute_sop_at_usair_size_against_the_plain_reference(features):
+    """``precompute_sop`` on the card at USAir's size (the benchmark's
+    generated 332-node graph and split, sign_k 3) over the train links, on
+    the route ``should_use_bsr`` picks (the CSR kernel's at 1,025 feature
+    columns, the edge list's at 16), against the float64 reference of
+    ``benchmark/reference_sop.py`` within :data:`SOP_GAP`, on 256 links:
+    the 128 of the largest endpoint degrees and 128 drawn. Features: the
+    benchmark's 1,025 one-hot degree columns, or 16 seeded normal columns,
+    the width of the paper's node2vec-16 features."""
+    import json
+
+    from benchmark.cellbase import make_inputs, program_graph, ref_graph, worst_relative_gap
+    from benchmark.reference_sop import sop_rows
+    from s3grl_tpu_torch import profiling
+    from s3grl_tpu_torch.operators.sop import precompute_sop
+
+    dev = _cuda()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs", "usair_pos.json")) as f:
+        config = json.load(f)
+    inp = make_inputs(config, 2**33 + 17)
+    if features == "normal_16":
+        inp.x = np.random.default_rng(2**33 + 19).normal(size=(inp.n, 16)).astype(np.float32)
+    links, y = inp.split.links("train")
+    c0 = profiling.counters()
+    ds = precompute_sop(program_graph(inp, dev), links, y, sign_k=3, device=dev)
+    c1 = profiling.counters()
+    calls = c1["sop.spmm.calls"] - c0.get("sop.spmm.calls", 0)
+    csr_calls = c1.get("sop.spmm.csr_calls", 0) - c0.get("sop.spmm.csr_calls", 0)
+    assert calls > 0 and csr_calls == (calls if features == "one_hot_degree" else 0)
+    deg = np.bincount(inp.split.observed[0], minlength=inp.n)
+    wide = np.argsort(-(deg[links[:, 0]] + deg[links[:, 1]]), kind="stable")[:128]
+    drawn = np.random.default_rng(3).choice(len(links), 128, replace=False)
+    pick = np.concatenate([wide, drawn])
+    got = ds.xs[torch.as_tensor(pick, device=dev)].cpu().numpy()
+    want = sop_rows(ref_graph(inp, dev), links[pick], sign_k=3).cpu().numpy()
+    assert worst_relative_gap(got, want) <= SOP_GAP

@@ -1,7 +1,7 @@
 """Port parity, SoP and hybrid operators, against the JAX package.
 
-The two routes of the global chain (block-sparse ``power_chain`` and the
-edge list) against the JAX package's chain; ``precompute_sop`` on the CPU
+The two routes of the global chain (``sop_route``'s by each route, and
+the block-sparse ``power_chain``) against the JAX package's chain; ``precompute_sop`` on the CPU
 (the selector takes each route on one of the graphs) against the JAX
 package's edge-list route at the operator bar (rtol 2e-3, atol 2e-4)
 and against ``reference_oracles.sop_oracle`` at the oracle bar (atol 1e-4,
@@ -28,8 +28,9 @@ from s3grl_tpu.ops.spmm import normalized_adjacency_weights as j_norm_weights
 from s3grl_tpu_torch.config import RunConfig
 from s3grl_tpu_torch.data.graph import Graph
 from s3grl_tpu_torch.operators.common import OperatorDataset
-from s3grl_tpu_torch.operators.sop import _sop_power_features, precompute_sop
-from s3grl_tpu_torch.ops.spmm import edge_list, normalized_adjacency_weights
+import s3grl_tpu_torch.operators.sop as tsop
+from s3grl_tpu_torch.operators.sop import precompute_sop
+from s3grl_tpu_torch.ops.spmm import normalized_adjacency_weights
 from s3grl_tpu_torch.ops.spmm_kernel import blockify, power_chain, should_use_bsr
 from s3grl_tpu_torch.runner import build_split_links, run_sgrl_learning
 from s3grl_tpu_torch.sampling.extraction import DeviceGraph
@@ -72,20 +73,25 @@ def test_precompute_sop_matches_jax(n, e, f, bsr):
 
 @pytest.mark.parametrize("sign_k", [1, 3])
 @pytest.mark.parametrize("n,e,f,bsr", GRAPHS)
-def test_chain_routes_match_jax(n, e, f, bsr, sign_k):
+def test_chain_routes_match_jax(monkeypatch, n, e, f, bsr, sign_k):
     # Both routes of the global chain on every graph, whichever the
-    # selector would take: power_chain over the blocks and the edge list.
+    # selector would take: ``sop_route``'s chain by each route, and
+    # power_chain over the blocks.
     jdg, dg, ei, x, _, _ = _graphs(3, n, e, f)
     src, dst = torch.as_tensor(ei[0]).long(), torch.as_tensor(ei[1]).long()
     w = normalized_adjacency_weights(src, dst, n)
     jw = j_norm_weights(jdg.edge_src, jdg.edge_dst, n)
     want = np.asarray(jsop._sop_power_features(
         jdg.edge_src, jdg.edge_dst, jw, jdg.x, sign_k=sign_k, num_nodes=n))
-    edge = _sop_power_features(edge_list(src, dst, w, n), torch.as_tensor(x), sign_k=sign_k)
+    routes = {}
+    for csr in (True, False):
+        monkeypatch.setattr(tsop, "should_use_bsr", lambda *a, csr=csr, **k: csr)
+        routes[csr] = tsop.sop_route(dg)[1](dg.x, sign_k)
     blocks = power_chain(blockify(ei[0], ei[1], w.numpy(), n, device="cpu"),
                          torch.as_tensor(x), sign_k)
-    assert edge.shape == blocks.shape == (sign_k, n, f)
-    np.testing.assert_allclose(edge.numpy(), want, **TOL)
+    assert routes[False].shape == routes[True].shape == blocks.shape == (sign_k, n, f)
+    assert torch.equal(routes[True], blocks)
+    np.testing.assert_allclose(routes[False].numpy(), want, **TOL)
     np.testing.assert_allclose(blocks.numpy(), want, **TOL)
 
 
