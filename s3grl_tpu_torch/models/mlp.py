@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -95,16 +96,22 @@ class MaskedBatchNorm(nn.Module):
             xf = x.reshape(-1, C)
             if self.group is not None:
                 n, mean, var = self._group_stats(xf, mask)
+                bessel = n / torch.clamp(n - 1.0, min=1.0)
             elif mask is None:
-                n = torch.tensor(float(xf.shape[0]), device=x.device)
+                # n / max(n - 1, 1) from the shape, rounded to float32 on the
+                # host as the tensor formula rounds it: no copy to the
+                # device, so a CUDA graph can hold the step.
+                n = xf.shape[0]
                 mean = xf.mean(dim=0)
                 var = ((xf - mean) ** 2).mean(dim=0)
+                bessel = float(np.float32(n) / np.float32(max(n - 1, 1)))
             else:
                 m = mask.reshape(-1).to(x.dtype)
                 n = torch.clamp(m.sum(), min=1.0)
                 mean = (xf * m[:, None]).sum(dim=0) / n
                 var = (((xf - mean) ** 2) * m[:, None]).sum(dim=0) / n
-            unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+                bessel = n / torch.clamp(n - 1.0, min=1.0)
+            unbiased = var * bessel
             with torch.no_grad():
                 self.running_mean.mul_(1 - self.momentum).add_(
                     self.momentum * mean.detach()

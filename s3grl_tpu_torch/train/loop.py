@@ -11,15 +11,29 @@ the JAX package's batch order. The last batch is padded with index 0 and
 loss weight 0; the padded rows still enter the BatchNorm statistics, as
 there.
 
+On a CUDA device the pointwise step replays from a CUDA graph: its shapes
+are static, so the first ``GRAPH_WARMUP_STEPS`` steps of a call run eagerly
+on a side stream (PyTorch's whole-network capture recipe), the step is
+captured once, and every later step of the call is two device-to-device
+copies of its indices and loss weights into the graph's static inputs and
+one replay. The graph holds the same kernels in the same order as the eager
+step (the batch gather, SIGNNet's forward with dropout, the loss, backward,
+a capturable Adam's step and the loss sum), so a replayed call gives the
+eager call's bits. Pairwise training, evaluation and the CPU stay eager.
+
 Spans (``profiling.span``): ``fit.setup`` (datasets to the device, the
 model, the optimizer), ``fit.epoch`` (one epoch with its evaluation),
-``fit.step`` (one optimizer step), ``fit.epoch_read`` (the epoch's one host
-read of its loss), ``fit.eval`` (an evaluation) and ``fit.auc`` (its
-metric on the host). Counters: ``fit.steps``, ``fit.evals``.
+``fit.step`` (one optimizer step, or one replay), ``fit.capture`` (the
+eager warm-up steps and the capture), ``fit.epoch_read`` (the epoch's one
+host read of its loss), ``fit.eval`` (an evaluation) and ``fit.auc`` (its
+metric on the host). Counters: ``fit.steps`` (every step), ``fit.captures``,
+``fit.graph_steps`` (steps replayed from a graph), ``fit.evals``.
 """
 from __future__ import annotations
 
+import functools
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -48,6 +62,32 @@ def make_optimizer(params, lr: float, weight_decay: float = 1e-4):
     return torch.optim.Adam(
         params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
     )
+
+
+# Eager steps a call runs before it captures its step (the default of
+# ``torch.cuda.make_graphed_callables``): they make Adam's lazy state,
+# cuBLAS's workspace and autograd's stream before the capture.
+GRAPH_WARMUP_STEPS = 3
+
+
+@functools.cache
+def _side_stream(device: torch.device):
+    """The side stream of a device's warm-up steps and captures, one for the
+    process: cuBLAS keeps a workspace for each stream it has run on, so a
+    stream made per call left ~65 MB allocated behind each call on an H100."""
+    return torch.cuda.Stream(device)
+
+
+def _capture_step(body: Callable[[], None], stream, generator):
+    """``body`` captured once on ``stream`` into a ``torch.cuda.CUDAGraph``,
+    with ``generator``'s Philox state registered: each replay then draws
+    the masks the next eager step would draw from it."""
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    with torch.cuda.graph(graph, stream=stream):
+        body()
+    count("fit.captures")
+    return graph
 
 
 def flat_operators(xb: torch.Tensor) -> torch.Tensor:
@@ -154,29 +194,80 @@ def fit_signnet(
         w_full = torch.zeros(L_pad, dtype=torch.float32, device=dev)
         w_full[:L] = 1.0
 
+    def step_work(loss_of) -> torch.Tensor:
+        opt.zero_grad(set_to_none=True)
+        loss, weight = loss_of()
+        loss.backward()
+        opt.step()
+        return loss.detach() * weight
+
     def step(loss_of) -> torch.Tensor:
         with span("fit.step"):
-            opt.zero_grad(set_to_none=True)
-            loss, weight = loss_of()
-            loss.backward()
-            opt.step()
-            out = loss.detach() * weight
+            out = step_work(loss_of)
         count("fit.steps")
         return out
+
+    def batch_loss(idx: torch.Tensor, wb: torch.Tensor):
+        out = model(flat_operators(x_tr[idx]), m_tr[idx], generator=drop_gen)
+        losses = bce_with_logits(out, y_tr[idx])
+        return (losses * wb).sum() / torch.clamp(wb.sum(), min=1.0), wb.sum()
 
     def train_epoch(perm_pad: torch.Tensor) -> torch.Tensor:
         total = torch.zeros((), device=dev)
         for s in range(steps):
             idx = perm_pad[s * batch_size : (s + 1) * batch_size]
             wb = w_full[s * batch_size : (s + 1) * batch_size]
-
-            def loss_of():
-                out = model(flat_operators(x_tr[idx]), m_tr[idx], generator=drop_gen)
-                losses = bce_with_logits(out, y_tr[idx])
-                return (losses * wb).sum() / torch.clamp(wb.sum(), min=1.0), wb.sum()
-
-            total = total + step(loss_of)
+            total = total + step(lambda: batch_loss(idx, wb))
         return total
+
+    # The graphed pointwise step reads its batch from static buffers and
+    # adds its loss into a static sum; its eager steps do the same.
+    graphed = dev.type == "cuda" and not pairwise
+    graph = None
+    n_warm = min(GRAPH_WARMUP_STEPS, steps)
+    if graphed:
+        idx_static = torch.zeros(batch_size, dtype=torch.int64, device=dev)
+        wb_static = torch.zeros(batch_size, dtype=torch.float32, device=dev)
+        loss_static = torch.zeros((), device=dev)
+        side = _side_stream(dev)
+
+    def static_loss():
+        return batch_loss(idx_static, wb_static)
+
+    def load(perm_pad: torch.Tensor, s: int) -> None:
+        idx_static.copy_(perm_pad[s * batch_size : (s + 1) * batch_size])
+        wb_static.copy_(w_full[s * batch_size : (s + 1) * batch_size])
+
+    def warm_up_and_capture(perm_pad: torch.Tensor) -> int:
+        """The call's first ``n_warm`` steps, eagerly on the side stream,
+        then the step's capture where steps remain; returns ``n_warm``."""
+        nonlocal graph
+        with span("fit.capture"):
+            main = torch.cuda.current_stream(dev)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for s in range(n_warm):
+                    load(perm_pad, s)
+                    loss_static.add_(step(static_loss))
+            main.wait_stream(side)
+            if steps * epochs > n_warm:
+                graph = _capture_step(lambda: loss_static.add_(step_work(static_loss)),
+                                      side, drop_gen)
+        return n_warm
+
+    def train_epoch_graphed(perm_pad: torch.Tensor, first: bool) -> torch.Tensor:
+        loss_static.zero_()
+        start = warm_up_and_capture(perm_pad) if first else 0
+        for s in range(start, steps):
+            load(perm_pad, s)
+            if graph is None:
+                loss_static.add_(step(static_loss))
+                continue
+            with span("fit.step"):
+                graph.replay()
+            count("fit.steps")
+            count("fit.graph_steps")
+        return loss_static
 
     # Pairwise training (reference train_pairwise, sgrl_link_pred.py:475-526,
     # PLNLP losses of custom_losses.py:5-16).
@@ -256,6 +347,10 @@ def fit_signnet(
             model=model,
         )
 
+    # Adam's step is captured with the rest where the step is graphed; a
+    # restored optimizer takes this device's setting, not its saver's.
+    for group in opt.param_groups:
+        group["capturable"] = graphed
     results_per_epoch = []
     train_times, inference_times = [], []
     model.train()
@@ -277,8 +372,16 @@ def fit_signnet(
                 )
             else:
                 perm = rng.permutation(L)
-                perm_pad = np.concatenate([perm, np.zeros(L_pad - L, dtype=perm.dtype)])
-                loss_sum = train_epoch(torch.as_tensor(perm_pad, device=dev))
+                perm_pad = torch.as_tensor(
+                    np.concatenate([perm, np.zeros(L_pad - L, dtype=perm.dtype)]), device=dev)
+                if graphed:
+                    with warnings.catch_warnings():
+                        # A capturable Adam's eager steps are meant here.
+                        warnings.filterwarnings("ignore", message="This instance was constructed "
+                                                "with capturable=True")
+                        loss_sum = train_epoch_graphed(perm_pad, first=epoch == start_epoch)
+                else:
+                    loss_sum = train_epoch(perm_pad)
             with span("fit.epoch_read"):
                 total = float(loss_sum)  # host read: the epoch's work has finished
             train_times.append(time.perf_counter() - t0)

@@ -471,6 +471,97 @@ def test_seeded_run_repeats_on_the_card(path, tmp_path):
     assert best[0] == best[1], best
 
 
+def _usair_like_fit_datasets(dev, n_train=3638, n_valid=106, n_test=213):
+    """PoS datasets (sign_k 3, 2 hops, one-hot degree features) of the
+    USAir-like graph on the card: ``n_*`` positives of each split drawn from
+    its edges and as many non-edges. 7,276 train links make the fit cell's
+    228 steps of 32."""
+    from s3grl_tpu_torch.data.features import init_features
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.operators.pos import precompute_pos
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from torch_port_helpers import usair_like_edges
+
+    n = 332
+    ei = usair_like_edges(1)
+    graph = init_features(Graph(num_nodes=n, edge_index=ei), "degree", device=dev)
+    dg = DeviceGraph.from_graph(graph, device=dev)
+    edges = set(zip(ei[0].tolist(), ei[1].tolist()))
+    rng = np.random.default_rng(5)
+
+    def split(k):
+        pos = ei[:, rng.choice(ei.shape[1], k, replace=False)].T
+        neg = []
+        while len(neg) < k:
+            u, v = (int(a) for a in rng.integers(0, n, 2))
+            if u != v and (u, v) not in edges:
+                neg.append((u, v))
+        links = np.concatenate([pos, np.array(neg)]).astype(np.int32)
+        y = np.concatenate([np.ones(k), np.zeros(k)]).astype(np.float32)
+        return precompute_pos(dg, links, y, num_hops=2, sign_k=3, device=dev)
+
+    return [split(k) for k in (n_train, n_valid, n_test)]
+
+
+@pytest.mark.gpu
+def test_graphed_fit_equals_the_eager_fit_bit_for_bit(monkeypatch):
+    """``fit_signnet``'s step replayed from a CUDA graph against the same
+    call forced eager (its capture entry monkeypatched away), 2 epochs at
+    USAir-like shapes: per-epoch losses, every parameter and BatchNorm
+    statistic, Adam's moments and steps and the evaluation predictions
+    equal bit for bit; one capture and 2 x 228 - 3 replayed steps."""
+    import s3grl_tpu_torch.train.loop as loop
+    from s3grl_tpu_torch import profiling
+    from s3grl_tpu_torch.train.metrics import evaluate_auc
+
+    dev = _cuda("it captures the training step in a CUDA graph")
+    ds = _usair_like_fit_datasets(dev)
+    steps = -(-ds[0].num_links // 32)
+    assert steps == 228
+    real_optimizer = loop.make_optimizer
+    runs = {}
+    for mode in ("graph", "eager"):
+        if mode == "eager":
+            monkeypatch.setattr(loop, "_capture_step", lambda *args: None)
+        rec = {"losses": [], "preds": []}
+
+        def keep_optimizer(params, lr, weight_decay=1e-4):
+            rec["opt"] = real_optimizer(params, lr, weight_decay)
+            return rec["opt"]
+
+        def eval_fn(val_pred, val_true, test_pred, test_true):
+            rec["preds"].append((val_pred.copy(), test_pred.copy()))
+            return evaluate_auc(val_pred, val_true, test_pred, test_true)
+
+        monkeypatch.setattr(loop, "make_optimizer", keep_optimizer)
+        before = profiling.counters()
+        fit = loop.fit_signnet(*ds, sign_k=3, hidden_channels=256, batch_size=32, lr=1e-4,
+                               dropout=0.5, epochs=2, seed=7, eval_fn=eval_fn, device=dev,
+                               logger_hook=lambda e, loss, r: rec["losses"].append(loss))
+        after = profiling.counters()
+        rec["counts"] = {k: after.get(k, 0) - before.get(k, 0)
+                         for k in ("fit.steps", "fit.captures", "fit.graph_steps")}
+        rec["state"] = {k: v.clone() for k, v in fit.model.state_dict().items()}
+        rec["adam"] = [{k: rec["opt"].state[p][k].clone() for k in ("exp_avg", "exp_avg_sq", "step")}
+                       for p in fit.model.parameters()]
+        runs[mode] = rec
+    got, want = runs["graph"], runs["eager"]
+    assert got["counts"] == {"fit.steps": 2 * steps, "fit.captures": 1,
+                             "fit.graph_steps": 2 * steps - loop.GRAPH_WARMUP_STEPS}
+    assert want["counts"] == {"fit.steps": 2 * steps, "fit.captures": 0, "fit.graph_steps": 0}
+    assert len(got["losses"]) == 2 and got["losses"] == want["losses"]
+    assert got["state"].keys() == want["state"].keys()
+    for k in want["state"]:
+        assert torch.equal(got["state"][k], want["state"][k]), k
+    for i, (g, w) in enumerate(zip(got["adam"], want["adam"])):
+        for k in w:
+            assert torch.equal(g[k], w[k]), (i, k)
+    assert float(got["adam"][0]["step"]) == 2 * steps
+    assert len(got["preds"]) == 2
+    for g, w in zip(got["preds"], want["preds"]):
+        assert np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
+
+
 # ---- Per-hop sampling and the large-graph route ----
 
 

@@ -124,3 +124,59 @@ def test_one_optimizer_step_matches_flax(k_heuristic, k_pool_strategy, n_real):
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), err_msg=k, **TOL)
+
+
+def _former_batchnorm_train(bn: "MaskedBatchNorm", x: torch.Tensor):
+    """The training forward without a mask as it was written before the
+    row count moved to the host: ``n`` a tensor on x's device."""
+    C = x.shape[-1]
+    xf = x.reshape(-1, C)
+    n = torch.tensor(float(xf.shape[0]), device=x.device)
+    mean = xf.mean(dim=0)
+    var = ((xf - mean) ** 2).mean(dim=0)
+    unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+    with torch.no_grad():
+        bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * mean.detach())
+        bn.running_var.mul_(1 - bn.momentum).add_(bn.momentum * unbiased.detach())
+    return (x - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
+
+
+@pytest.mark.parametrize("shape", [(1, 6), (2, 6), (3, 5), (7, 3, 4), (32, 256), (96, 16),
+                                   (1000, 3), (4097, 2)], ids=str)
+def test_batchnorm_without_mask_keeps_the_tensor_formulas_bits(shape):
+    """MaskedBatchNorm's training forward without a mask (link_pred_mlp's):
+    outputs and running statistics equal to the bit to the former tensor
+    formula, over three steps from random affine parameters."""
+    from s3grl_tpu_torch.models.mlp import MaskedBatchNorm
+
+    gen = torch.Generator().manual_seed(sum(shape))
+    got, want = MaskedBatchNorm(shape[-1]), MaskedBatchNorm(shape[-1])
+    with torch.no_grad():
+        for bn in (got, want):
+            bn.weight.copy_(torch.linspace(0.5, 1.5, shape[-1]))
+            bn.bias.copy_(torch.linspace(-0.2, 0.3, shape[-1]))
+    got.train()
+    for _ in range(3):
+        x = torch.randn(*shape, generator=gen) * 3.0 + 0.7
+        assert torch.equal(got(x), _former_batchnorm_train(want, x))
+        assert torch.equal(got.running_mean, want.running_mean)
+        assert torch.equal(got.running_var, want.running_var)
+
+
+def test_fit_signnet_on_the_cpu_captures_no_graph():
+    """On the CPU the step stays the eager loop: no capture, no replayed
+    step, every step counted."""
+    from s3grl_tpu_torch import profiling
+    from s3grl_tpu_torch.train.loop import fit_signnet
+
+    rng = np.random.default_rng(3)
+    ds = OperatorDataset(torch.as_tensor(rng.normal(size=(70, 3, 2, 5)).astype(np.float32)),
+                         torch.ones((70, 2), dtype=torch.bool),
+                         (rng.random(70) < 0.5).astype(np.float32))
+    before = profiling.counters()
+    fit_signnet(ds, ds, ds, sign_k=2, hidden_channels=8, batch_size=16, epochs=2, seed=4,
+                device="cpu")
+    after = profiling.counters()
+    assert after["fit.steps"] - before.get("fit.steps", 0) == 2 * 5
+    for name in ("fit.captures", "fit.graph_steps"):
+        assert after.get(name, 0) == before.get(name, 0), name

@@ -316,3 +316,28 @@ def test_span_report_reads_a_traced_benchmark_run(tmp_path, cell):
         assert delta["fit.evals"] == table["fit.eval"]["n"] == 1
         assert {"fit.step_launches", "fit.step_host_ms", "fit.eval_share"} <= set(got)
         assert got["fit.step_launches"] == 0 and 0 < got["fit.eval_share"] < 100
+
+
+@pytest.mark.parametrize("counters,want", [
+    ({"fit.steps": 228, "fit.graph_steps": 225, "fit.captures": 1}, 100.0 * 225 / 228),
+    ({"fit.steps": 4 * 1140, "fit.graph_steps": 4 * 1137, "fit.evals": 20},
+     100.0 * 1137 / 1140),
+    ({"fit.steps": 10, "fit.graph_steps": 0}, 0.0),
+    ({"fit.steps": 228, "fit.evals": 1}, None),
+    ({}, None),
+    ({"fit.steps": 0, "fit.graph_steps": 0}, None),
+    (None, None),
+])
+def test_graph_step_share_reads_the_programs_counters(monkeypatch, counters, want):
+    """``fit.graph_step_share``: 100 x replayed steps / all steps of the
+    program's counters; None where the program keeps no ``fit.graph_steps``
+    (a commit before the graphed step, or no counters at all)."""
+    from benchmark import spec
+    from benchmark.cellbase import TraceContext
+
+    if counters is None:
+        monkeypatch.delattr(profiling, "counters")
+    else:
+        monkeypatch.setattr(profiling, "counters", lambda: dict(counters))
+    got = spec.reader("fit.graph_step_share")(TraceContext())
+    assert got == (None if want is None else pytest.approx(want))
