@@ -101,9 +101,7 @@ non-zero without the final line:
     alone on rank 0's 166-row shard of a 2-way partition against its plain
     version, then the same checks in two ranks spawned on the one card over
     gloo (NCCL takes one rank a card);
-15. bench: ``python3 bench_torch.py`` in its own process (``phase_bench``
-    says what its last line must hold);
-16. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
+15. device times: each kernel that phase 3 timed, and ``torch.sparse.mm``,
     by ``torch.profiler`` (``phase_device_times``: per-launch means over the
     device events kept), held against the graph replay at ``TIMER_ROWS``;
     then one profiled 1-epoch run of each path of
@@ -697,24 +695,22 @@ def phase_local_table(cfg, graph, split, power_limit: str) -> dict:
 
 
 def bsr_inputs(src, dst, n, w=None, rows=None):
-    """M on the card, ``M[dst, src] = w``: by default the sym-normalized
-    adjacency of (src, dst), n x n, in its ``blockify`` layout; with ``w``
-    and ``rows`` a [rows, n] row shard, as the row-partitioned chain builds
-    it (``csr_matrix``, CSR alone). That, its edge list (src, dst, w) and
+    """M on the card, ``M[dst, src] = w``, as the kernel reads it
+    (``csr_matrix``): by default the sym-normalized adjacency of (src, dst),
+    n x n; with ``w`` and ``rows`` a [rows, n] row shard, as the
+    row-partitioned chain builds it. That, its edge list (src, dst, w) and
     one torch CSR tensor of it."""
     import torch
 
     from s3grl_tpu_torch.ops.spmm import normalized_adjacency_weights
-    from s3grl_tpu_torch.ops.spmm_kernel import blockify, csr_matrix
+    from s3grl_tpu_torch.ops.spmm_kernel import csr_matrix
 
     if w is None:
         w = normalized_adjacency_weights(
             torch.as_tensor(src, dtype=torch.int64), torch.as_tensor(dst, dtype=torch.int64), n
         ).numpy()
-    if rows is None:
-        rows, adj = n, blockify(src, dst, w, n, device="cuda")
-    else:
-        adj = csr_matrix(src, dst, w, rows, n, device="cuda")
+    rows = n if rows is None else rows
+    adj = csr_matrix(src, dst, w, rows, n, device="cuda")
     s_t = torch.as_tensor(src, dtype=torch.int64, device="cuda")
     d_t = torch.as_tensor(dst, dtype=torch.int64, device="cuda")
     w_t = torch.as_tensor(w, device="cuda")
@@ -728,30 +724,34 @@ def bsr_inputs(src, dst, n, w=None, rows=None):
 def bsr_case(label, src, dst, n, x, power_k=0, w=None, rows=None):
     """``bsr_spmm`` on M = the sym-normalized adjacency of (src, dst) and X
     (or, with ``w`` and ``rows``, a [rows, n] row shard): checked against
-    its plain version (``bsr_spmm_reference``, or a shard's
-    ``csr_spmm_reference``; and, with ``power_k``, the K-step chain
-    against the plain chain), timed beside the plain version, the
-    edge-list route (a square M only) and one ``torch.sparse.mm`` of M in
-    CSR form."""
+    its plain version (the dense blocks of ``blockify`` through
+    ``bsr_spmm_reference``, or a shard's ``csr_spmm_reference``; and, with
+    ``power_k``, the K-step chain against the plain chain), timed beside
+    the plain version, the edge-list route (a square M only) and one
+    ``torch.sparse.mm`` of M in CSR form."""
     import torch
 
     from s3grl_tpu_torch.ops.spmm import edge_list, spmm
     from s3grl_tpu_torch.ops.spmm_kernel import (
-        BlockedAdjacency,
+        blockify,
         bsr_spmm,
         bsr_spmm_reference,
         csr_spmm_reference,
-        power_chain,
+        power_chain_of,
     )
     from s3grl_tpu_torch.ops.spmm_kernel import work as spmm_work
     from s3grl_tpu_torch.utils import timing
     from s3grl_tpu_torch.utils.device import Work
     from s3grl_tpu_torch.utils.device import bound_ms as bound_ms_for
 
+    blocked = rows is None
     adj, (s_t, d_t, w_t), m_csr = bsr_inputs(src, dst, n, w, rows)
     rows = adj.num_nodes
-    blocked = isinstance(adj, BlockedAdjacency)
-    plain = bsr_spmm_reference if blocked else csr_spmm_reference
+    if blocked:
+        blocks = blockify(src, dst, w_t.cpu().numpy(), n, device="cuda")
+        plain = lambda y: bsr_spmm_reference(blocks, y)  # noqa: E731
+    else:
+        plain = lambda y: csr_spmm_reference(adj, y)  # noqa: E731
     c = int(x.shape[1])
 
     def check(got, want, what):
@@ -764,20 +764,17 @@ def bsr_case(label, src, dst, n, x, power_k=0, w=None, rows=None):
             )
         return diff
 
-    max_abs = check(bsr_spmm(adj, x), plain(adj, x), "one product")
+    max_abs = check(bsr_spmm(adj, x), plain(x), "one product")
     if power_k:
-        want = [x]
-        for _ in range(power_k):
-            want.append(plain(adj, want[-1]))
-        chain_err = check(power_chain(adj, x, power_k), torch.stack(want[1:]),
-                          f"K={power_k} chain")
+        chain_err = check(power_chain_of(lambda y: bsr_spmm(adj, y), x, power_k),
+                          power_chain_of(plain, x, power_k), f"K={power_k} chain")
         max_abs = max(max_abs, chain_err)
     torch.cuda.synchronize()
 
     ms = timing.call_ms(lambda: bsr_spmm(adj, x))
     device_ms = timing.graph_ms(lambda: bsr_spmm(adj, x))
     host_ms = timing.host_ms(lambda: bsr_spmm(adj, x))
-    plain_ms = timing.call_ms(lambda: plain(adj, x), reps=3)
+    plain_ms = timing.call_ms(lambda: plain(x), reps=3)
     edge_ms = None
     if rows == n:
         edges = edge_list(s_t, d_t, w_t, n)
@@ -794,8 +791,8 @@ def bsr_case(label, src, dst, n, x, power_k=0, w=None, rows=None):
     bound_ms, by = bound_ms_for(need, card_rates())
     dense_ms, dense_note, nb = None, "", "n/a (CSR alone)"
     if blocked:
-        nb, bs = adj.num_blocks, int(adj.blocks.shape[1])
-        dense_bytes = 4 * (nb * bs * bs + (n + rows) * c + nb + adj.num_row_blocks + 1)
+        nb, bs = blocks.num_blocks, int(blocks.blocks.shape[1])
+        dense_bytes = 4 * (nb * bs * bs + (n + rows) * c + nb + blocks.num_row_blocks + 1)
         dense_flops = 2.0 * nb * bs * bs * c
         dense_ms, dense_by = bound_ms_for(Work(dense_bytes, dense_flops), card_rates())
         dense_note = (f"; dense-block layout's bound {f4(dense_ms)} ms ({dense_by}: "
@@ -876,7 +873,7 @@ def phase_bsr_kernel(cfg, graph, split, power_limit: str):
 TIMER_ROWS = ("global S=256 R=2 ", "hub ")
 TIMER_AGREE = 0.10
 PROFILER_REPS = 20
-# Profiler sessions a row may take until one keeps events of both kernels.
+# Profiler sessions a row may take until one keeps events of every kernel.
 PROFILER_SESSIONS = 3
 
 
@@ -887,20 +884,29 @@ def fmt_profile(prof: dict) -> str:
 
 
 def profiled_pos(kw) -> tuple[dict, float]:
-    """``timing.profile_kernels`` of ``pos_power_rows(**kw)`` and the sum of
-    its two kernels' per-launch means (each launches once a call). Late in a
-    long process a session can miss every launch of its window (``PERF.md``
-    §6): a session that kept no event of one of the two kernels is taken
-    again, up to PROFILER_SESSIONS in all (``prof["sessions"]``)."""
-    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
+    """``timing.profile_kernels`` of ``pos_power_rows(**kw)`` and its time a
+    call: each kernel's per-launch mean times its launches a call. A call
+    launches the selector and the X pass once each, or, where the selector
+    is split over row blocks (``pos_selector_rows.split_launches`` counts
+    it), a table pass, a degree pass, one step kernel a step and the X pass:
+    ``prof["kernels"]`` kernels, ``prof["launched"]`` launches in all. Late
+    in a long process a session can miss every launch of its window
+    (``PERF.md`` §6): a session that kept no event of one of the kernels is
+    taken again, up to PROFILER_SESSIONS in all (``prof["sessions"]``)."""
+    from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows, pos_selector_rows
     from s3grl_tpu_torch.utils import timing
 
+    k = kw["sign_k"]
     for sessions in range(1, PROFILER_SESSIONS + 1):
+        split_before = pos_selector_rows.split_launches
         prof = timing.profile_kernels(lambda: pos_power_rows(**kw), PROFILER_REPS)
-        if len(prof["launches"]) == 2:
+        split = pos_selector_rows.split_launches > split_before
+        kernels, per_call = (3 + (k > 0), 3 + k) if split else (2, 2)
+        if len(prof["launches"]) == kernels:
             break
-    prof["sessions"] = sessions
-    return prof, sum(v for k, v in prof["by_name"].items() if k.startswith("pos_"))
+    prof.update(sessions=sessions, kernels=kernels, launched=per_call * PROFILER_REPS)
+    return prof, sum(v * (k if name == "pos_selector_step_kernel" else 1)
+                     for name, v in prof["by_name"].items() if name.startswith("pos_"))
 
 
 def phase_device_times(cfg, graph, split, rows, bsr_rows, power_limit: str) -> None:
@@ -922,13 +928,13 @@ def phase_device_times(cfg, graph, split, rows, bsr_rows, power_limit: str) -> N
         r = rows[label]
         prof, r["profiler_ms"] = profiled_pos(kw)
         agree = r["profiler_ms"] / r["device_ms"] - 1
-        print(f"  pos_power_rows {label}: {fmt_profile(prof)} (of {2 * PROFILER_REPS} "
-              f"launched; session {prof['sessions']}); the two kernels "
+        print(f"  pos_power_rows {label}: {fmt_profile(prof)} (of {prof['launched']} "
+              f"launched; session {prof['sessions']}); its {prof['kernels']} kernels "
               f"{r['profiler_ms']:.4f} ms against {r['device_ms']:.4f} ms by graph replay "
               f"({agree:+.3%}); the kept events' sum "
               f"over the calls {prof['kept_sum_ms']:.4f} ms; share of bound "
               f"{f4(ratio(r['bound_ms'], r['device_ms']))}")
-        if label.startswith(TIMER_ROWS) and (len(prof["launches"]) != 2
+        if label.startswith(TIMER_ROWS) and (len(prof["launches"]) != prof["kernels"]
                                              or abs(agree) > TIMER_AGREE):
             raise AssertionError(
                 f"{label}: the profiler reads {r['profiler_ms']:.4f} ms over "
@@ -1855,10 +1861,9 @@ def cora_graph():
 
 
 def arxiv_graph():
-    """(Graph, DeviceGraph on the card, HUB_LINKS observed links) of
-    ``bench_torch.py``'s arxiv-shaped Chung-Lu graph (18,772 nodes, 198,110
-    edges, max degree 505: a global table 512 wide) with HUB_FEATURES normal
-    features."""
+    """(Graph, DeviceGraph on the card, HUB_LINKS observed links) of an
+    arxiv-shaped Chung-Lu graph (18,772 nodes, 198,110 edges, max degree
+    505: a global table 512 wide) with HUB_FEATURES normal features."""
     from s3grl_tpu_torch.data.graph import Graph
     from s3grl_tpu_torch.sampling.extraction import DeviceGraph
     from torch_port_helpers import blogcatalog_like_edges
@@ -2097,7 +2102,7 @@ def multi_device_checks(mesh, cfg, graph, split) -> dict:
     from s3grl_tpu_torch.data.features import init_features
     from s3grl_tpu_torch.operators.pos import precompute_pos
     from s3grl_tpu_torch.operators.sop import host_normalized_edges, precompute_sop
-    from s3grl_tpu_torch.ops.spmm_kernel import blockify, power_chain
+    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm, csr_matrix, power_chain_of
     from s3grl_tpu_torch.parallel import dist as pdist
     from s3grl_tpu_torch.parallel.scaling import _train_rate
     from s3grl_tpu_torch.runner import build_split_links
@@ -2114,7 +2119,8 @@ def multi_device_checks(mesh, cfg, graph, split) -> dict:
     one_pos = precompute_pos(dg, links, y, device="cuda", **kw)
     one_sop = precompute_sop(dg, links, y, sign_k=K, device="cuda")
     src, dst, w = host_normalized_edges(dg)
-    one_chain = power_chain(blockify(src, dst, w, N, device="cuda"), dg.x, K)
+    adj = csr_matrix(src, dst, w, N, N, device="cuda")
+    one_chain = power_chain_of(lambda v: bsr_spmm(adj, v), dg.x, K)
     out = {}
 
     def timed_piece(name, fn):
@@ -2133,7 +2139,7 @@ def multi_device_checks(mesh, cfg, graph, split) -> dict:
         raise AssertionError("precompute_pos_sharded differs from precompute_pos")
     chain = timed_piece("SoP chain", lambda: pdist.dist_power_chain(mesh, src, dst, w, dg.x, K))
     if not torch.equal(pdist.gather_rows(mesh, chain, N), one_chain):
-        raise AssertionError("dist_power_chain differs from power_chain")
+        raise AssertionError("dist_power_chain differs from one process's chain")
     sop = timed_piece("SoP sharded", lambda: pdist.precompute_sop_sharded(mesh, dg, links, y,
                                                                         sign_k=K))
     if not torch.equal(pdist.gather_dataset(mesh, sop, L).xs, one_sop.xs):
@@ -2239,71 +2245,6 @@ def phase_multi_device(cfg, graph, split, power_limit: str) -> dict:
     return dict(launches=launches, world1=one, scaling=row, shard=shard, two=two)
 
 
-# bench_torch.py's last line must carry these keys (bench.py's, plus the card
-# and the graph), and its kernel rows these tolerances (this script's).
-BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail", "device", "graph"}
-BENCH_DETAIL_KEYS = {"precompute_links_per_sec", "train_links_per_sec",
-                     "reference_scipy_links_per_sec", "test_auc_at_5_epochs", "total_links",
-                     "kernel_efficiency", "blogcatalog_precompute", "arxiv_precompute"}
-BENCH_TOL = {"pos_power_rows": TOL, "bsr_spmm": BSR_TOL}
-# bench_torch.py's rows at the S = 256 and hub-like shapes (bench.py's
-# "pos_pallas" and "pos_pallas_large"), whose three readings are held.
-BENCH_TIMER_ROWS = ("pos_power_rows", "pos_power_rows_large")
-BENCH_SHARE_MAX = 1.05
-BENCH_TIMEOUT_S = 600
-
-
-def phase_bench(power_limit: str) -> dict:
-    """``python3 bench_torch.py`` in a process of its own, as a user runs
-    it; its two JSON lines are printed. The last must carry BENCH_KEYS, a
-    best test AUC within AUC_SLACK of the JAX package's PoS AUC, a PoS path
-    that launched ``pos_power_rows``, kernel rows within their tolerance of
-    the plain versions with a share of the bound at most BENCH_SHARE_MAX,
-    and at BENCH_TIMER_ROWS a profiler reading within TIMER_AGREE of the
-    graph replay's ``device_ms``, with ``call_ms`` beside them. Returns the
-    last line."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    print(f"bench: python3 bench_torch.py; card {power_limit}")
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, os.path.join(here, "bench_torch.py")], cwd=here,
-                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
-    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
-    for ln in lines:
-        print(f"  {ln}")
-    if res.returncode != 0 or len(lines) != 2:
-        raise AssertionError(f"bench_torch.py exited {res.returncode} with {len(lines)} JSON "
-                             f"line(s):\n{res.stderr[-4000:]}")
-    first, last = (json.loads(ln) for ln in lines)
-    detail = last["detail"]
-    missing = (BENCH_KEYS - set(last)) | (BENCH_DETAIL_KEYS - set(detail))
-    if missing or (first["metric"], first["value"]) != (last["metric"], last["value"]):
-        raise AssertionError(f"bench_torch.py's lines lack {sorted(missing)} or disagree")
-    check_auc("PoS", 100 * detail["test_auc_at_5_epochs"])
-    if not detail["pos_power_rows_launches"] > 0:
-        raise AssertionError("bench_torch.py's timed precompute never launched pos_power_rows")
-    rows = {k: v for k, v in detail["kernel_efficiency"].items()
-            if isinstance(v, dict) and "kernel" in v}
-    if set(rows) != {*BENCH_TIMER_ROWS, "pos_power_rows_local_large",
-                     "pos_power_rows_power_law_table", "bsr_spmm"}:
-        raise AssertionError(f"bench_torch.py's kernel rows: {sorted(rows)}")
-    for tag, r in rows.items():
-        agree = r["profiler_ms"] / r["device_ms"] - 1
-        print(f"  {tag}: max_abs_err {r['max_abs_err']:.3e}, device {r['device_ms']:.4f} ms "
-              f"by graph replay, profiler {r['profiler_ms']:.4f} ms ({agree:+.3%}), "
-              f"{r['call_ms']:.4f} ms a call on the stream, bound {f4(r['bound_ms'])} ms "
-              f"({r['bound_by']}), share {f4(r['share'])}")
-        if not r["within_tol"] or r["tol"] != BENCH_TOL[r["kernel"]]:
-            raise AssertionError(f"bench_torch.py's {tag} row is not within {r['tol']} of its "
-                                 f"plain version, or not at {BENCH_TOL[r['kernel']]}")
-        if r["share"] is not None and r["share"] > BENCH_SHARE_MAX:
-            raise AssertionError(f"bench_torch.py's {tag} row reads a share of {r['share']}")
-        if tag in BENCH_TIMER_ROWS and abs(agree) > TIMER_AGREE:
-            raise AssertionError(f"bench_torch.py's {tag} row: the profiler reads "
-                                 f"{r['profiler_ms']} ms against {r['device_ms']} ms")
-    print(f"  bench: {time.perf_counter() - t0:.1f} s with the process's start")
-    return last
-
-
 def phase_idle(cfg, graph, split, power_limit: str) -> None:
     """The device's idle share of each path of IDLE_PATHS: one 1-epoch run
     under ``torch.profiler`` (prep and eval included), 1 - busy / wall."""
@@ -2375,7 +2316,6 @@ def main(argv=None) -> int:
     pairwise = timed("pairwise", phase_pairwise, cfg, graph, split)
     valedges = timed("valedges", phase_valedges, cfg, graph, split)
     multi = timed("multi-device", phase_multi_device, cfg, graph, split, power_limit)
-    timed("bench", phase_bench, power_limit)
     timed("device times", phase_device_times, cfg, graph, split, rows, bsr_rows, power_limit)
     timed("idle", phase_idle, cfg, graph, split, power_limit)
     bsr_main, bsr_batch = bsr_rows[0], bsr_rows[1]

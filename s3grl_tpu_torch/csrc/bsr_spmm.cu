@@ -4,9 +4,9 @@
 // The TPU kernel multiplies M's 128×128 dense blocks on the matrix unit. On
 // the graphs it serves those blocks are mostly zeros (97.5 % on the
 // USAir-shaped main path, 99.87 % on a Cora-shaped graph), so here M comes in
-// the CSR form that blockify() reads out of the same blocks: row_ptr [N+1],
-// cols [nnz], vals [nnz], sorted by (row, column). X and Y are [N, C],
-// row-major, unpadded.
+// CSR form alone (ops/spmm_kernel.py's csr_matrix): row_ptr [N+1], cols
+// [nnz], vals [nnz], sorted by (row, column). X and Y are [N, C], row-major,
+// unpadded.
 //
 // What bounds it on an H100: bytes. The least traffic is the nonzeros (value
 // and column, 8 bytes each) with X read and Y written once,

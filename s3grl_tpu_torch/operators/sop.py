@@ -11,10 +11,10 @@ store
 and x = [[1, X[src]], [1, X[dst]]]. No sparse matrix and no SpGEMM:
 
 1. the global chain ``Y_k = Â^k X`` runs once, through the sparse SpMM
-   kernel (``ops/spmm_kernel.bsr_spmm``) or the edge-list route
-   (``ops/spmm.spmm``), one ``power_chain_of`` loop either way, as
-   :func:`~s3grl_tpu_torch.ops.spmm_kernel.should_use_bsr` picks from the
-   graph's shape;
+   kernel (``ops/spmm_kernel.bsr_spmm``, over Â in CSR form) or the
+   edge-list route (``ops/spmm.spmm``), one ``power_chain_of`` loop either
+   way, as :func:`~s3grl_tpu_torch.ops.spmm_kernel.should_use_bsr` picks
+   from the graph's shape;
 2. per batch of links, the endpoint one-hot columns go through the chain
    by the same route, ``R_k = Â R_{k-1}``, giving the scalars Â^k[u,v] and
    Â^k[u,u];
@@ -39,7 +39,7 @@ import torch
 
 from s3grl_tpu_torch.operators.common import OperatorDataset
 from s3grl_tpu_torch.ops.spmm import edge_list, normalized_adjacency_weights, spmm
-from s3grl_tpu_torch.ops.spmm_kernel import blockify, bsr_spmm, power_chain_of, should_use_bsr
+from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm, csr_matrix, power_chain_of, should_use_bsr
 from s3grl_tpu_torch.profiling import count, span
 from s3grl_tpu_torch.sampling.extraction import DeviceGraph
 
@@ -99,7 +99,7 @@ def sop_batch_size(num_nodes: int, num_edges: int) -> int:
 
 def host_normalized_edges(dg: DeviceGraph):
     """(src, dst, weight) of Â's edges on the host: the sym-normalized
-    weights of the binary adjacency (E-sized, cheap; ``blockify`` reads
+    weights of the binary adjacency (E-sized, cheap; ``csr_matrix`` reads
     them there)."""
     src_h, dst_h, _ = dg.host_edges()
     norm_w_h = normalized_adjacency_weights(
@@ -112,12 +112,12 @@ def host_normalized_edges(dg: DeviceGraph):
 def sop_route(dg: DeviceGraph, norm_w_h: np.ndarray | None = None):
     """(propagate, chain) of Â on the route :func:`should_use_bsr` picks
     from the graph's shape: ``propagate(Y)`` = Â Y and ``chain(X, K)`` =
-    [Â X, ..., Â^K X], by ``bsr_spmm`` over the CSR form, or by the edge
-    list. Both add each row's terms in a fixed order, so the results repeat
-    bit for bit on the card. ``norm_w_h``: Â's host weights
+    [Â X, ..., Â^K X], by ``bsr_spmm`` over Â's ``csr_matrix``, or by the
+    edge list. Both add each row's terms in a fixed order, so the results
+    repeat bit for bit on the card. ``norm_w_h``: Â's host weights
     (:func:`host_normalized_edges`), where the caller has them.
 
-    The route's build (Â's host weights, then ``blockify`` or
+    The route's build (Â's host weights, then ``csr_matrix`` or
     ``edge_list``) is the span ``sop.route/<csr|edges>``, named by the
     route picked just before it. Each product counts ``sop.spmm.calls``,
     its columns into ``sop.spmm.cols``, and on the kernel's route
@@ -129,7 +129,7 @@ def sop_route(dg: DeviceGraph, norm_w_h: np.ndarray | None = None):
         if norm_w_h is None:
             _, _, norm_w_h = host_normalized_edges(dg)
         if csr:
-            adj = blockify(src_h, dst_h, norm_w_h, N, device=dg.device)
+            adj = csr_matrix(src_h, dst_h, norm_w_h, N, N, device=dg.device)
             product = lambda y: bsr_spmm(adj, y)  # noqa: E731
         else:
             edges = edge_list(dg.edge_src, dg.edge_dst,
@@ -161,7 +161,7 @@ def precompute_sop(
     :func:`should_use_bsr` picks the route of the global ``Â^k X`` chain
     from the graph's shape, on every device, so the CPU takes the card's
     route. The per-batch endpoint-row propagation takes the same route:
-    ``bsr_spmm`` over the chain's CSR form, or the edge list. Both add each
+    ``bsr_spmm`` over Â's CSR form, or the edge list. Both add each
     row's terms in a fixed order, so the operators repeat bit for bit on
     the card. The JAX package's ``x_override`` (no caller) is left out.
     """

@@ -3,20 +3,20 @@ torch versions.
 
 ``bsr_spmm`` replaces ``s3grl_tpu/ops/spmm_pallas.py::_bsr_spmm_padded``
 (through its wrappers ``bsr_spmm`` and ``power_chain``): ``Y = M @ X`` for
-M built once per graph on the host by :func:`blockify`, ``M[dst, src] = w``.
-``blockify`` keeps the JAX package's 128×128 block-sparse (BSR) layout and
-also builds the CSR form of the same M, with the same sums; the kernel
-walks the CSR nonzeros. The route selector :func:`should_use_bsr` picks between
-this and the edge-list route (``ops/spmm.spmm``) from the graph's shape.
-M may be a rectangle: a row shard of the row-partitioned chain
-(``parallel/dist.py``) is :func:`csr_matrix` of the shard's incoming edges,
-``[rows, N_pad]`` in CSR form alone (no dense blocks, so no block budget),
-multiplied by the gathered ``[N_pad, C]`` power.
+M built once per graph on the host by :func:`csr_matrix`,
+``M[dst, src] = w``, in CSR form, the one form every path of the port
+builds and the kernel walks. The route selector :func:`should_use_bsr`
+picks between this and the edge-list route (``ops/spmm.spmm``) from the
+graph's shape. M may be a rectangle: a row shard of the row-partitioned
+chain (``parallel/dist.py``) is ``[rows, N_pad]``, multiplied by the
+gathered ``[N_pad, C]`` power.
 
-On CPU tensors the wrapper runs ``bsr_spmm_reference`` (the dense blocks)
-for a :class:`BlockedAdjacency` and ``csr_spmm_reference`` for a
-:class:`CsrMatrix`; on CUDA tensors it launches the kernel
-(``csrc/bsr_spmm.cu``) or raises.
+On CPU tensors the wrapper runs ``csr_spmm_reference``, the kernel's own
+walk; on CUDA tensors it launches the kernel (``csrc/bsr_spmm.cu``) or
+raises. :func:`blockify` keeps the JAX package's 128×128 block-sparse (BSR)
+layout bit for bit, and ``bsr_spmm_reference`` multiplies by its dense
+blocks: the plain dense-block version that tests hold the kernel and the
+CSR form against. No path of the port builds it.
 """
 from __future__ import annotations
 
@@ -39,15 +39,13 @@ BSR_BYTES_FACTOR = 1.0
 
 @dataclass(frozen=True)
 class BlockedAdjacency:
-    """A sparse matrix M in BSR form (dense nonzero blocks + block coords)
-    and in CSR form, both on one device.
+    """A square sparse matrix M in the JAX package's BSR form (dense nonzero
+    blocks + block coords), on one device: :func:`bsr_spmm_reference`'s
+    input, not the kernel's.
 
     Blocks are sorted by (row_block, col_block); every row block appears at
     least once (empty row blocks carry an explicit zero block), as in the
     JAX package. ``row_ptr[r] .. row_ptr[r + 1]`` are row block r's blocks.
-    The CSR fields hold the nonzero entries of those blocks in rows and
-    columns below ``num_nodes``, sorted by (row, column): row i's are
-    ``csr_row_ptr[i] .. csr_row_ptr[i + 1]``.
     """
 
     blocks: torch.Tensor  # [NB, BS, BS] float32
@@ -56,32 +54,23 @@ class BlockedAdjacency:
     row_ptr: torch.Tensor  # [n_rb + 1] int32
     num_nodes: int
     num_row_blocks: int
-    csr_row_ptr: torch.Tensor  # [N + 1] int32
-    csr_cols: torch.Tensor  # [nnz] int32
-    csr_vals: torch.Tensor  # [nnz] float32
-    csr_max_row: int  # the most nonzeros in one row
 
     @property
     def num_blocks(self) -> int:
         return int(self.blocks.shape[0])
 
-    @property
-    def num_cols(self) -> int:
-        """Columns of M (the rows of the X it multiplies): M is square."""
-        return self.num_nodes
-
 
 @dataclass(frozen=True)
 class CsrMatrix:
-    """A sparse matrix M in CSR form alone, on one device: the CSR fields of
-    :class:`BlockedAdjacency` (same names, same meaning), without the dense
-    blocks. ``num_nodes`` rows and ``num_cols`` columns: a row shard of the
-    row-partitioned chain has fewer rows than columns."""
+    """A sparse matrix M in CSR form, on one device: the nonzero entries
+    sorted by (row, column), row i's at ``csr_row_ptr[i] ..
+    csr_row_ptr[i + 1]``. ``num_nodes`` rows and ``num_cols`` columns: a
+    row shard of the row-partitioned chain has fewer rows than columns."""
 
     csr_row_ptr: torch.Tensor  # [num_nodes + 1] int32
     csr_cols: torch.Tensor  # [nnz] int32
     csr_vals: torch.Tensor  # [nnz] float32
-    csr_max_row: int
+    csr_max_row: int  # the most nonzeros in one row
     num_nodes: int
     num_cols: int
 
@@ -116,9 +105,11 @@ def csr_matrix(
     device="cuda",
 ) -> CsrMatrix:
     """M, ``M[dst, src] = w``, ``[num_rows, num_cols]``, as a
-    :class:`CsrMatrix` on ``device``: the CSR fields :func:`blockify` would
-    give the same edges, built on the host without the dense blocks (so at
-    any size the host holds)."""
+    :class:`CsrMatrix` on ``device``, built on the host (at any size the
+    host holds). Duplicate edges are summed in their given order (as
+    ``np.add.at`` sums them into :func:`blockify`'s blocks, so both forms
+    hold the same values); entries that sum to zero, and those in rows or
+    columns past M's, drop out."""
     from s3grl_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -160,15 +151,9 @@ def blockify(
     budget_bytes: int = BUDGET_BYTES,
     device="cuda",
 ) -> BlockedAdjacency:
-    """Build the BSR layout and its CSR form on the host (one-off per graph)
-    and move them to ``device``. Raises ValueError when the dense blocks
-    would exceed ``budget_bytes``.
-
-    The CSR form adds a pair's edges in the order ``np.add.at`` adds them
-    into its block entry, so both forms hold the same values (those of
-    :func:`csr_matrix`): duplicate edges are summed, entries that sum to
-    zero and the explicit zero blocks drop out, and so do entries in rows
-    or columns >= ``num_nodes`` (they meet no row of X or Y).
+    """Build the BSR layout on the host and move it to ``device``. Raises
+    ValueError when the dense blocks would exceed ``budget_bytes``.
+    Duplicate edges are summed into their block entry.
 
     Row convention matches ops/spmm.py::spmm: the produced matrix M satisfies
     M[dst, src] = w(src->dst), i.e. Y = M @ X aggregates incoming messages —
@@ -216,12 +201,6 @@ def blockify(
     row_ptr = np.concatenate(
         [[0], np.cumsum(np.bincount(all_rows, minlength=n_rb))]
     ).astype(np.int32)
-
-    # The CSR form: a pair's edges are added in their given order, as
-    # np.add.at added them into its block entry, so both forms hold the
-    # same values.
-    csr_row_ptr, cols, vals, max_row = _csr_arrays(edge_src, edge_dst, edge_weight,
-                                                   num_nodes, num_nodes)
     return BlockedAdjacency(
         blocks=torch.as_tensor(blocks, device=dev),
         block_rows=torch.as_tensor(all_rows, device=dev),
@@ -229,10 +208,6 @@ def blockify(
         row_ptr=torch.as_tensor(row_ptr, device=dev),
         num_nodes=num_nodes,
         num_row_blocks=n_rb,
-        csr_row_ptr=torch.as_tensor(csr_row_ptr, device=dev),
-        csr_cols=torch.as_tensor(cols, device=dev),
-        csr_vals=torch.as_tensor(vals, device=dev),
-        csr_max_row=max_row,
     )
 
 
@@ -269,7 +244,8 @@ def should_use_bsr(
 
 
 def bsr_spmm_reference(adj: BlockedAdjacency, x: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of the kernel: one batched dense block × X-block
+    """Plain dense-block version of the kernel's product, as the JAX
+    package's layout computes it: one batched dense block × X-block
     product, then the blocks of each row added with ``index_add_``.
     Returns [N, C] float32."""
     n, c = x.shape
@@ -285,7 +261,7 @@ def bsr_spmm_reference(adj: BlockedAdjacency, x: torch.Tensor) -> torch.Tensor:
     return out.view(-1, c)[:n]
 
 
-def csr_spmm_reference(adj: BlockedAdjacency | CsrMatrix, x: torch.Tensor) -> torch.Tensor:
+def csr_spmm_reference(adj: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """Plain torch version of the kernel's own walk: each CSR nonzero times
     its row of X, added into its output row with ``index_add_``.
     Returns [rows of M, C] float32."""
@@ -309,28 +285,30 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def bsr_spmm(adj: BlockedAdjacency | CsrMatrix, x: torch.Tensor) -> torch.Tensor:
+def bsr_spmm(adj: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """Y = M @ X for ``x`` [num_cols, C] float32. Returns [num_nodes, C]
     float32 (one row per row of M; [N, C] for a graph's adjacency).
 
-    CPU tensors go to ``bsr_spmm_reference`` (a :class:`CsrMatrix`, which
-    has no blocks, to ``csr_spmm_reference``). CUDA tensors launch the
-    kernel on the current stream, which reads the CSR fields of ``adj``;
-    anything it does not take raises.
+    On every device it refuses anything but a :class:`CsrMatrix`, an ``x``
+    whose rows are not M's columns and an ``x`` that is not float32. CPU
+    tensors then go to ``csr_spmm_reference``; CUDA tensors launch the
+    kernel on the current stream, and what else it does not take raises.
     ``bsr_spmm.launches`` counts the launches.
     """
-    dev = x.device
-    if dev.type == "cpu":
-        if isinstance(adj, CsrMatrix):
-            return csr_spmm_reference(adj, x)
-        return bsr_spmm_reference(adj, x)
-    if dev.type != "cuda":
-        raise ValueError(f"bsr_spmm runs on cpu or cuda, got {dev}")
+    if not isinstance(adj, CsrMatrix):
+        raise TypeError(f"bsr_spmm takes a CsrMatrix, got {type(adj).__name__}")
     n_x, c = x.shape
-    n = adj.num_nodes
-    nnz = int(adj.csr_cols.shape[0])
     if n_x != adj.num_cols:
         raise ValueError(f"x has {n_x} rows, the adjacency {adj.num_cols} columns")
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    dev = x.device
+    if dev.type == "cpu":
+        return csr_spmm_reference(adj, x)
+    if dev.type != "cuda":
+        raise ValueError(f"bsr_spmm runs on cpu or cuda, got {dev}")
+    n = adj.num_nodes
+    nnz = int(adj.csr_cols.shape[0])
     _build.check_arg(x, "x", torch.float32, (n_x, c), dev)
     _build.check_arg(adj.csr_row_ptr, "csr_row_ptr", torch.int32, (n + 1,), dev)
     _build.check_arg(adj.csr_cols, "csr_cols", torch.int32, (nnz,), dev)
@@ -356,7 +334,7 @@ def bsr_spmm(adj: BlockedAdjacency | CsrMatrix, x: torch.Tensor) -> torch.Tensor
 bsr_spmm.launches = 0
 
 
-def work(adj: BlockedAdjacency | CsrMatrix, x: torch.Tensor) -> Work:
+def work(adj: CsrMatrix, x: torch.Tensor) -> Work:
     """The bytes and FLOP one :func:`bsr_spmm` call must do for this data,
     whatever implements it: M's nonzeros (value and column id) and its CSR
     row pointers, X read once and Y written once; one multiply-add per
@@ -382,7 +360,3 @@ def power_chain_of(product, x: torch.Tensor, sign_k: int) -> torch.Tensor:
         ys.append(y)
     return torch.stack(ys, dim=0)
 
-
-def power_chain(adj: BlockedAdjacency, x: torch.Tensor, sign_k: int) -> torch.Tensor:
-    """:func:`power_chain_of` by :func:`bsr_spmm` over ``adj``."""
-    return power_chain_of(lambda y: bsr_spmm(adj, y), x, sign_k)

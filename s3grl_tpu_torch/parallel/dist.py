@@ -8,8 +8,8 @@ the work.
 - **Row-partitioned chain** (:func:`dist_power_chain`): ``Y_k = Â Y_{k-1}``
   with node rows partitioned over ``data``. Each rank owns ``rows =
   ⌈N/n⌉`` rows and their incoming edges (:func:`partition_edges_by_owner`),
-  as a ``[rows, N_pad]`` CSR built once on the host (``csr_matrix``: no
-  dense blocks, so any graph the host holds).
+  as a ``[rows, N_pad]`` CSR built once on the host (``csr_matrix``, the
+  form one process's chain reads too).
   Each power all-gathers the previous power's shards into ``[N_pad, F]``
   (the boundary exchange) and multiplies by ``bsr_spmm`` on the shard. X
   is on every rank, so the first power needs no gather.

@@ -63,7 +63,7 @@ def probe_sums(graph, dev):
     from s3grl_tpu_torch.data.features import init_features
     from s3grl_tpu_torch.ops.segment import gather_rows, segment_sum
     from s3grl_tpu_torch.ops.spmm import edge_list, normalized_adjacency_weights, spmm
-    from s3grl_tpu_torch.ops.spmm_kernel import blockify, bsr_spmm
+    from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm, csr_matrix
     from s3grl_tpu_torch.sampling.extraction import DeviceGraph
 
     print("edge-list SpMM")
@@ -71,7 +71,7 @@ def probe_sums(graph, dev):
     dg = DeviceGraph.from_graph(init_features(graph, "degree"), device=dev)
     w = normalized_adjacency_weights(dg.edge_src, dg.edge_dst, dg.num_nodes)
     src_h, dst_h, _ = dg.host_edges()
-    adj = blockify(src_h, dst_h, w.cpu().numpy(), dg.num_nodes, device=dev)
+    adj = csr_matrix(src_h, dst_h, w.cpu().numpy(), dg.num_nodes, dg.num_nodes, device=dev)
     for C in (1025, 8192):  # the chain's width; 2B one-hot columns of a SoP batch
         x = torch.rand((dg.num_nodes, C), generator=gen, device=dev)
         contrib = x[dg.edge_src] * w[:, None]

@@ -15,13 +15,12 @@ operators within the parity bar rtol 2e-3, atol 2e-4, row masks exact; SoP
 within rtol 1e-4, atol 1e-5; SIGNNet's forward and step within 1e-5.
 Against the port's single-process results PoS is equal bit for bit (a
 link's rows do not depend on its batch), and so is the chain against the
-square matrix's CSR walk (a shard's CSR holds each row's nonzeros in the
-square one's order, and the CPU runs the shard's plain version,
-``csr_spmm_reference``). One process's chain and SoP on the CPU run the
-dense-block plain version (``bsr_spmm_reference``) or the edge list, which
-add a row's terms in another order: there within 1e-6. On the card both
-sides walk the same CSR in the kernel, bit for bit
-(``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+square matrix's CSR walk, one process's chain (a shard's CSR holds each
+row's nonzeros in the square one's order, and the CPU runs the kernel's
+walk, ``csr_spmm_reference``, on both). One process's SoP takes the CSR
+walk or the edge list, which adds a row's terms in another order: within
+1e-6 of the shards. On the card both sides walk the same CSR in the
+kernel, bit for bit (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -42,11 +41,11 @@ from s3grl_tpu_torch.ops.spmm import normalized_adjacency_weights
 from s3grl_tpu_torch.ops.spmm_kernel import (
     BLOCK_SIZE,
     BUDGET_BYTES,
-    blockify,
+    bsr_spmm,
     csr_matrix,
     csr_spmm_reference,
     num_blocks,
-    power_chain,
+    power_chain_of,
     should_use_bsr,
 )
 from s3grl_tpu_torch.parallel import dist as pdist
@@ -212,13 +211,14 @@ def test_dist_power_chain_matches_jax_and_one_process(world, two_ranks, four_ran
     n = len(x)
     mesh = j_make_mesh(n_data=world, devices=jax.devices()[:world])
     want = np.asarray(jdist.dist_power_chain(mesh, src, dst, w, jnp.asarray(x), 3))
-    one = power_chain(blockify(src, dst, w, n, device="cpu"), torch.as_tensor(x), 3).numpy()
+    adj = csr_matrix(src, dst, w, n, n, device="cpu")
+    one = power_chain_of(lambda y: bsr_spmm(adj, y), torch.as_tensor(x), 3).numpy()
     walk = _csr_chain(src, dst, w, x)
     rows = -(-n // world)
     for r, res in enumerate(results):
         np.testing.assert_allclose(res["chain"], want, rtol=1e-5, atol=1e-6)
         np.testing.assert_array_equal(res["chain"], walk)
-        np.testing.assert_allclose(res["chain"], one, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(res["chain"], one)
         shard = res["chain_shard"]
         assert shard.shape == (3, rows, x.shape[1])
         lo, hi = r * rows, min((r + 1) * rows, n)
@@ -228,9 +228,9 @@ def test_dist_power_chain_matches_jax_and_one_process(world, two_ranks, four_ran
 
 def test_dist_power_chain_past_the_block_budget_matches_jax(two_ranks):
     """A graph whose square and shard layouts both need more dense blocks
-    than ``BUDGET_BYTES`` allows (so ``blockify`` would raise and one
-    process takes the edge list): the shards are CSR alone and the chain
-    still matches the JAX chain, and the square CSR walk bit for bit."""
+    than ``BUDGET_BYTES`` allows (so one process takes the edge list): the
+    shards are CSR and the chain still matches the JAX chain, and the
+    square CSR walk bit for bit."""
     src, dst, w, x = _big_chain_inputs()
     n = len(x)
     block_bytes = 4 * BLOCK_SIZE * BLOCK_SIZE
@@ -268,11 +268,11 @@ def test_precompute_pos_sharded_matches_jax_and_one_process(two_ranks):
 
 @pytest.mark.parametrize("name", list(SOP_EDGES))
 def test_precompute_sop_sharded_matches_jax_and_one_process(name, two_ranks):
-    """Within 1e-6 of one process on either of its routes: on the CPU one
-    process's chain adds each row's terms in another order than the
-    shards' CSR walk (the dense blocks of ``bsr_spmm_reference``, or the
-    edge list's segment sum). On the card, where both walk the CSR in the
-    kernel, they are equal bit for bit (``tests/test_torch_gpu.py``)."""
+    """Within 1e-6 of one process on either of its routes, and equal bit
+    for bit where one process takes the kernel's route: there both walk
+    the same CSR. On the edge list one process adds each row's terms in
+    another order (the segment sum). On the card both routes of the
+    sharded chain walk the CSR in the kernel (``tests/test_torch_gpu.py``)."""
     (ei, x), links, y = _sop_inputs(name)
     mesh = j_make_mesh(n_data=2, devices=jax.devices()[:2])
     want = jdist.precompute_sop_sharded(mesh, _jdg(ei, x), links, y, sign_k=3)
@@ -286,6 +286,8 @@ def test_precompute_sop_sharded_matches_jax_and_one_process(name, two_ranks):
         assert res["shard_links"] == np.subtract(*share(len(links), 2, r)[::-1])
         np.testing.assert_allclose(res["xs"], np.asarray(want.xs), rtol=1e-4, atol=1e-5)
         np.testing.assert_allclose(res["xs"], one.xs.numpy(), rtol=0, atol=1e-6)
+        if bsr:
+            np.testing.assert_array_equal(res["xs"], one.xs.numpy())
         np.testing.assert_array_equal(res["y"], y)
 
 

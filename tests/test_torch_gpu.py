@@ -25,7 +25,9 @@ from s3grl_tpu_torch.ops.spmm_kernel import (
     blockify,
     bsr_spmm,
     bsr_spmm_reference,
+    csr_matrix,
     csr_spmm_reference,
+    power_chain_of,
 )
 from torch_port_helpers import kernel_inputs
 
@@ -121,13 +123,13 @@ def _bsr_inputs(seed, n, e, c, empty_row_block=False):
 def test_bsr_kernel_matches_plain_version(n, e, c):
     dev = _cuda()
     src, dst, w, x = _bsr_inputs(n, n, e, c, empty_row_block=n > 256)
-    adj = blockify(src, dst, w, n, device=dev)
+    adj = csr_matrix(src, dst, w, n, n, device=dev)
     xt = torch.as_tensor(x, device=dev)
     before = bsr_spmm.launches
     got = bsr_spmm(adj, xt)
     torch.cuda.synchronize()
     assert bsr_spmm.launches == before + 1
-    want = bsr_spmm_reference(adj, xt)
+    want = bsr_spmm_reference(blockify(src, dst, w, n, device=dev), xt)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **BSR_TOL)
     dense = np.zeros((n, n), np.float32)
     np.add.at(dense, (dst, src), w)
@@ -150,12 +152,12 @@ def test_bsr_kernel_splits_long_rows():
     dev = _cuda()
     src, dst, w, x = _bsr_inputs(3, 400, 3000, 257)
     dst[:300] = 7
-    adj = blockify(src, dst, w, 400, device=dev)
+    adj = csr_matrix(src, dst, w, 400, 400, device=dev)
     assert adj.csr_max_row > 32
     xt = torch.as_tensor(x, device=dev)
     got = bsr_spmm(adj, xt)
     torch.cuda.synchronize()
-    want = bsr_spmm_reference(adj, xt)
+    want = bsr_spmm_reference(blockify(src, dst, w, 400, device=dev), xt)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **BSR_TOL)
     assert torch.equal(bsr_spmm(adj, xt), got)
 
@@ -164,7 +166,7 @@ def test_bsr_kernel_splits_long_rows():
 def test_bsr_kernel_rejects_what_it_does_not_take():
     dev = _cuda()
     src, dst, w, x = _bsr_inputs(1, 200, 800, 9)
-    adj = blockify(src, dst, w, 200, device=dev)
+    adj = csr_matrix(src, dst, w, 200, 200, device=dev)
     xt = torch.as_tensor(x, device=dev)
     before = bsr_spmm.launches
     wide = dataclasses.replace(adj, csr_cols=adj.csr_cols.long())
@@ -172,7 +174,7 @@ def test_bsr_kernel_rejects_what_it_does_not_take():
         bsr_spmm(wide, xt)
     with pytest.raises(ValueError):
         bsr_spmm(adj, torch.as_tensor(x.T.copy(), device=dev).T)
-    on_cpu = blockify(src, dst, w, 200, device="cpu")
+    on_cpu = csr_matrix(src, dst, w, 200, 200, device="cpu")
     with pytest.raises(ValueError):
         bsr_spmm(on_cpu, xt)
     assert bsr_spmm.launches == before
@@ -650,7 +652,6 @@ def test_bsr_kernel_on_a_row_shard_matches_plain_version(c):
     (``csr_matrix``, CSR alone): X has N_pad rows, Y one per shard row;
     against its plain version, the dense product, and the square matrix's
     rows bit for bit."""
-    from s3grl_tpu_torch.ops.spmm_kernel import csr_matrix
     from s3grl_tpu_torch.parallel.dist import partition_edges_by_owner
 
     dev = _cuda()
@@ -661,7 +662,7 @@ def test_bsr_kernel_on_a_row_shard_matches_plain_version(c):
     x = np.zeros((2 * rows, c), np.float32)
     x[:n] = rng.normal(size=(n, c))
     xt = torch.as_tensor(x, device=dev)
-    square = bsr_spmm(blockify(src, dst, w, n, device=dev), xt[:n])
+    square = bsr_spmm(csr_matrix(src, dst, w, n, n, device=dev), xt[:n])
     for r in range(2):
         keep = w_p[r] != 0
         adj = csr_matrix(src_p[r][keep], dstl_p[r][keep], w_p[r][keep], rows, 2 * rows,
@@ -691,7 +692,6 @@ def test_world_one_nccl_sharded_precompute_equals_one_process(tmp_path, monkeypa
     from s3grl_tpu_torch.data.graph import Graph
     from s3grl_tpu_torch.operators.pos import precompute_pos
     from s3grl_tpu_torch.operators.sop import host_normalized_edges, precompute_sop
-    from s3grl_tpu_torch.ops.spmm_kernel import power_chain
     from s3grl_tpu_torch.parallel import dist as pdist
     from s3grl_tpu_torch.parallel.mesh import init_distributed, make_mesh
     from s3grl_tpu_torch.sampling.extraction import DeviceGraph
@@ -724,8 +724,9 @@ def test_world_one_nccl_sharded_precompute_equals_one_process(tmp_path, monkeypa
         before = bsr_spmm.launches
         chain = pdist.dist_power_chain(mesh, src, dst, w, dg.x, 3)
         assert bsr_spmm.launches == before + 3
+        adj = csr_matrix(src, dst, w, 332, 332, device="cuda")
         assert torch.equal(pdist.gather_rows(mesh, chain, 332),
-                           power_chain(blockify(src, dst, w, 332, device="cuda"), dg.x, 3))
+                           power_chain_of(lambda v: bsr_spmm(adj, v), dg.x, 3))
         sop = pdist.precompute_sop_sharded(mesh, dg, links, y, sign_k=3)
         assert torch.equal(sop.xs, precompute_sop(dg, links, y, sign_k=3).xs)
     finally:

@@ -12,7 +12,7 @@ import s3grl_tpu_torch
 from s3grl_tpu_torch.config import RunConfig
 from s3grl_tpu_torch.data.graph import Graph
 from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
-from s3grl_tpu_torch.ops.spmm_kernel import blockify, bsr_spmm
+from s3grl_tpu_torch.ops.spmm_kernel import bsr_spmm, csr_matrix
 from tests.torch_port_helpers import random_edges
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -31,7 +31,7 @@ def _port_modules():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every port module, and bench_torch.py at the repository's root."""
+    """Every port module."""
     mods = _port_modules()
     assert "s3grl_tpu_torch.runner" in mods and "s3grl_tpu_torch.ops.pos_kernel" in mods
     assert "s3grl_tpu_torch.operators.sop" in mods and "s3grl_tpu_torch.ops.spmm_kernel" in mods
@@ -45,7 +45,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert f"s3grl_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
-        f"for m in {mods + ['bench_torch']!r}: importlib.import_module(m)\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 's3grl_tpu' or m.startswith('s3grl_tpu.'))\n"
         "print(bad)\n"
@@ -118,7 +118,7 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: precompute_pos(dg, np.zeros((2, 2), np.int32), np.zeros(2),
                                num_hops=1, sign_k=1),
         lambda: precompute_sop(dg, np.zeros((2, 2), np.int32), np.zeros(2), sign_k=1),
-        lambda: blockify(np.zeros(1), np.zeros(1), np.ones(1), 4),
+        lambda: csr_matrix(np.zeros(1), np.zeros(1), np.ones(1), 4, 4),
         lambda: run_sgrl_learning(RunConfig(sign_type="SoP", optimize_sign=True,
                                             pool_operatorwise=True,
                                             init_features="degree"), g),
@@ -178,7 +178,7 @@ def test_kernel_wrapper_cpu_route_and_launch_count():
 
 def test_bsr_wrapper_cpu_route_leaves_the_launch_count():
     assert bsr_spmm.launches == 0
-    adj = blockify(np.array([0, 1]), np.array([1, 0]), np.ones(2), 3, device="cpu")
+    adj = csr_matrix(np.array([0, 1]), np.array([1, 0]), np.ones(2), 3, 3, device="cpu")
     y = bsr_spmm(adj, torch.ones((3, 4)))
     assert y.shape == (3, 4) and y.sum() == 8
     assert bsr_spmm.launches == 0

@@ -77,8 +77,7 @@ def test_spmm_work_equals_a_brute_force_count(shard):
     rows = 140 if shard else n
     keep = ei[1] < rows
     src, dst, wk = ei[0][keep], ei[1][keep], w[keep]
-    adj = (spmm_kernel.csr_matrix(src, dst, wk, rows, n, device="cpu") if shard
-           else spmm_kernel.blockify(src, dst, wk, n, device="cpu"))
+    adj = spmm_kernel.csr_matrix(src, dst, wk, rows, n, device="cpu")
     dense = np.zeros((rows, n), np.float32)
     np.add.at(dense, (dst, src), wk)
     nnz = int(np.count_nonzero(dense))

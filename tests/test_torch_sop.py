@@ -1,7 +1,9 @@
 """Port parity, SoP and hybrid operators, against the JAX package.
 
 The two routes of the global chain (``sop_route``'s by each route, and
-the block-sparse ``power_chain``) against the JAX package's chain; ``precompute_sop`` on the CPU
+the kernel's CSR walk over ``csr_matrix``) against the JAX package's chain;
+``sop_route``'s product on the kernel's route against that walk bit for
+bit; ``precompute_sop`` on the CPU
 (the selector takes each route on one of the graphs) against the JAX
 package's edge-list route at the operator bar (rtol 2e-3, atol 2e-4)
 and against ``reference_oracles.sop_oracle`` at the oracle bar (atol 1e-4,
@@ -29,15 +31,22 @@ from s3grl_tpu_torch.config import RunConfig
 from s3grl_tpu_torch.data.graph import Graph
 from s3grl_tpu_torch.operators.common import OperatorDataset
 import s3grl_tpu_torch.operators.sop as tsop
-from s3grl_tpu_torch.operators.sop import precompute_sop
+from s3grl_tpu_torch.operators.sop import host_normalized_edges, precompute_sop
 from s3grl_tpu_torch.ops.spmm import normalized_adjacency_weights
-from s3grl_tpu_torch.ops.spmm_kernel import blockify, power_chain, should_use_bsr
+from s3grl_tpu_torch.ops.spmm_kernel import (
+    blockify,
+    bsr_spmm,
+    csr_matrix,
+    csr_spmm_reference,
+    power_chain_of,
+    should_use_bsr,
+)
 from s3grl_tpu_torch.runner import build_split_links, run_sgrl_learning
 from s3grl_tpu_torch.sampling.extraction import DeviceGraph
 from s3grl_tpu_torch.utils.seeding import seed_everything
 from tests.reference_oracles import sop_oracle
 from tests.test_torch_end_to_end import BASE, _split
-from tests.torch_port_helpers import random_edges
+from tests.torch_port_helpers import random_edges, usair_like_edges
 
 TOL = dict(rtol=2e-3, atol=2e-4)
 
@@ -75,8 +84,8 @@ def test_precompute_sop_matches_jax(n, e, f, bsr):
 @pytest.mark.parametrize("n,e,f,bsr", GRAPHS)
 def test_chain_routes_match_jax(monkeypatch, n, e, f, bsr, sign_k):
     # Both routes of the global chain on every graph, whichever the
-    # selector would take: ``sop_route``'s chain by each route, and
-    # power_chain over the blocks.
+    # selector would take: ``sop_route``'s chain by each route, and the
+    # chain of bsr_spmm over the CSR form.
     jdg, dg, ei, x, _, _ = _graphs(3, n, e, f)
     src, dst = torch.as_tensor(ei[0]).long(), torch.as_tensor(ei[1]).long()
     w = normalized_adjacency_weights(src, dst, n)
@@ -87,12 +96,12 @@ def test_chain_routes_match_jax(monkeypatch, n, e, f, bsr, sign_k):
     for csr in (True, False):
         monkeypatch.setattr(tsop, "should_use_bsr", lambda *a, csr=csr, **k: csr)
         routes[csr] = tsop.sop_route(dg)[1](dg.x, sign_k)
-    blocks = power_chain(blockify(ei[0], ei[1], w.numpy(), n, device="cpu"),
-                         torch.as_tensor(x), sign_k)
-    assert routes[False].shape == routes[True].shape == blocks.shape == (sign_k, n, f)
-    assert torch.equal(routes[True], blocks)
+    adj = csr_matrix(ei[0], ei[1], w.numpy(), n, n, device="cpu")
+    walk = power_chain_of(lambda y: bsr_spmm(adj, y), torch.as_tensor(x), sign_k)
+    assert routes[False].shape == routes[True].shape == walk.shape == (sign_k, n, f)
+    assert torch.equal(routes[True], walk)
     np.testing.assert_allclose(routes[False].numpy(), want, **TOL)
-    np.testing.assert_allclose(blocks.numpy(), want, **TOL)
+    np.testing.assert_allclose(walk.numpy(), want, **TOL)
 
 
 @pytest.mark.parametrize("sign_k", [1, 3])
@@ -113,6 +122,35 @@ def test_precompute_sop_matches_oracle(sign_k):
         np.testing.assert_allclose(ds.xs[b, 0].numpy(), x0_ref, atol=1e-5)
         for k in range(sign_k):
             np.testing.assert_allclose(ds.xs[b, k + 1].numpy(), ops_ref[k], atol=1e-4)
+
+
+def _empty_row_block_edges(rng):
+    """300 nodes, 128..255 isolated: Â's second row block is empty."""
+    ei = random_edges(rng, n=172, e=1500)
+    return np.where(ei >= 128, ei + 128, ei).astype(np.int32), 300
+
+
+@pytest.mark.parametrize("graph", ["usair_like", "empty_row_block"])
+def test_sop_route_propagates_by_the_kernels_walk(graph):
+    """On the kernel's route, ``sop_route``'s product on the CPU is the
+    kernel's own walk over Â's ``csr_matrix`` bit for bit: the order in
+    which the card adds each row's terms."""
+    rng = np.random.default_rng(4)
+    ei, n = (usair_like_edges(1), 332) if graph == "usair_like" else _empty_row_block_edges(rng)
+    f = 33
+    assert should_use_bsr(ei[0], ei[1], n, f)
+    dg = DeviceGraph.from_graph(
+        Graph(num_nodes=n, edge_index=ei, x=rng.normal(size=(n, f)).astype(np.float32)),
+        device="cpu")
+    src, dst, w = host_normalized_edges(dg)
+    adj = csr_matrix(src, dst, w, n, n, device="cpu")
+    y = torch.as_tensor(rng.normal(size=(n, 40)).astype(np.float32))
+    propagate, chain = tsop.sop_route(dg)
+    got = propagate(y)
+    assert torch.equal(got, csr_spmm_reference(adj, y))
+    assert torch.equal(chain(dg.x, 2)[1], csr_spmm_reference(adj, csr_spmm_reference(adj, dg.x)))
+    if graph == "empty_row_block":
+        assert not got[128:256].any()
 
 
 def test_over_budget_graph_takes_the_edge_list():

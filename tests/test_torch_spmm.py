@@ -1,8 +1,11 @@
-"""Port parity, SpMM: the edge-list route, the BSR layout, the block-sparse
-kernel's plain version and the route selector, against the JAX package.
+"""Port parity, SpMM: the edge-list route, the CSR form the kernel reads,
+the BSR layout and its dense-block product, and the route selector,
+against the JAX package.
 
-On the CPU ``bsr_spmm`` runs its plain version (``bsr_spmm_reference``);
-the JAX ``bsr_spmm`` runs its Pallas kernel in interpret mode, as
+On the CPU ``bsr_spmm`` takes a ``csr_matrix`` and runs the kernel's own
+walk (``csr_spmm_reference``); the port's ``blockify`` and
+``bsr_spmm_reference`` are the plain dense-block version it is held
+against. The JAX ``bsr_spmm`` runs its Pallas kernel in interpret mode, as
 tests/test_pallas_spmm.py runs it. Tolerances are that file's: rtol/atol
 1e-4 for one product, rtol 1e-3 / atol 1e-5 for the power chain. The
 layout must be bit-exact; the edge-list route agrees to 1e-5 (both add in
@@ -21,9 +24,10 @@ from s3grl_tpu_torch.ops.spmm_kernel import (
     blockify,
     bsr_spmm,
     bsr_spmm_reference,
+    csr_matrix,
     csr_spmm_reference,
     num_blocks,
-    power_chain,
+    power_chain_of,
     should_use_bsr,
 )
 from tests.torch_port_helpers import cora_like_edges, usair_like_edges
@@ -38,6 +42,10 @@ def _random_coo(rng, n, e):
     dense = np.zeros((n, n), np.float32)
     np.add.at(dense, (dst, src), w)
     return src, dst, w, dense
+
+
+def _csr(src, dst, w, n):
+    return csr_matrix(src, dst, w, n, n, device="cpu")
 
 
 @pytest.mark.parametrize("n,e,c", SHAPES)
@@ -63,19 +71,25 @@ def test_bsr_spmm_matches_jax_and_dense(n, e, c):
     rng = np.random.default_rng(n)
     src, dst, w, dense = _random_coo(rng, n, e)
     x = rng.normal(size=(n, c)).astype(np.float32)
-    got = bsr_spmm(blockify(src, dst, w, n, device="cpu"), torch.as_tensor(x)).numpy()
+    xt = torch.as_tensor(x)
+    got = bsr_spmm(_csr(src, dst, w, n), xt).numpy()
     assert got.shape == (n, c)
+    np.testing.assert_allclose(
+        got, bsr_spmm_reference(blockify(src, dst, w, n, device="cpu"), xt).numpy(),
+        rtol=1e-4, atol=1e-4)
     want = np.asarray(jsp.bsr_spmm(jsp.blockify(src, dst, w, n), x, interpret=True))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got, dense @ x, rtol=1e-4, atol=1e-4)
 
 
 def _dense_from_blocks(adj):
-    """M [N, N] rebuilt from the dense blocks (rows and columns past N cut)."""
+    """M [N, N] rebuilt from a layout's dense blocks (rows and columns past N
+    cut)."""
     n, bs = adj.num_nodes, adj.blocks.shape[1]
-    n_cb = max(adj.num_row_blocks, int(adj.block_cols.max()) + 1)
+    block_rows, block_cols = np.asarray(adj.block_rows), np.asarray(adj.block_cols)
+    n_cb = max(adj.num_row_blocks, int(block_cols.max()) + 1)
     m = np.zeros((adj.num_row_blocks * bs, n_cb * bs), np.float32)
-    for blk, r, c in zip(adj.blocks.numpy(), adj.block_rows.tolist(), adj.block_cols.tolist()):
+    for blk, r, c in zip(np.asarray(adj.blocks), block_rows.tolist(), block_cols.tolist()):
         m[r * bs:(r + 1) * bs, c * bs:(c + 1) * bs] += blk
     return m[:n, :n]
 
@@ -115,9 +129,11 @@ def _csr_case(name):
 @pytest.mark.parametrize("case", ["empty_row_block", "duplicate_edges", "zero_weights",
                                   "n_not_multiple_of_128"])
 def test_blockify_csr_fields_match_the_blocks(case):
+    """``csr_matrix``'s fields hold the nonzeros of the JAX package's
+    ``blockify`` blocks, each once and sorted."""
     src, dst, w, n = _csr_case(case)
-    adj = blockify(src.astype(np.int32), dst.astype(np.int32), w.astype(np.float32), n,
-                   device="cpu")
+    src, dst, w = src.astype(np.int32), dst.astype(np.int32), w.astype(np.float32)
+    adj = _csr(src, dst, w, n)
     ptr, cols = adj.csr_row_ptr.numpy(), adj.csr_cols.numpy()
     assert adj.csr_row_ptr.dtype == adj.csr_cols.dtype == torch.int32
     assert adj.csr_vals.dtype == torch.float32
@@ -126,7 +142,8 @@ def test_blockify_csr_fields_match_the_blocks(case):
     for i in range(n):
         assert (np.diff(cols[ptr[i]:ptr[i + 1]]) > 0).all()  # sorted, no repeats
     assert ((cols >= 0) & (cols < n)).all() and (adj.csr_vals.numpy() != 0).all()
-    np.testing.assert_array_equal(_dense_from_csr(adj), _dense_from_blocks(adj))
+    np.testing.assert_array_equal(_dense_from_csr(adj),
+                                  _dense_from_blocks(jsp.blockify(src, dst, w, n)))
     if case == "empty_row_block":
         assert (ptr[128:257] == ptr[128]).all()
 
@@ -136,9 +153,9 @@ def test_csr_reference_matches_bsr_reference_and_jax(n, e, c):
     rng = np.random.default_rng(n + 3)
     src, dst, w, dense = _random_coo(rng, n, e)
     x = rng.normal(size=(n, c)).astype(np.float32)
-    adj = blockify(src, dst, w, n, device="cpu")
-    got = csr_spmm_reference(adj, torch.as_tensor(x)).numpy()
-    np.testing.assert_allclose(got, bsr_spmm_reference(adj, torch.as_tensor(x)).numpy(),
+    got = csr_spmm_reference(_csr(src, dst, w, n), torch.as_tensor(x)).numpy()
+    blocks = blockify(src, dst, w, n, device="cpu")
+    np.testing.assert_allclose(got, bsr_spmm_reference(blocks, torch.as_tensor(x)).numpy(),
                                rtol=1e-4, atol=1e-4)
     want = np.asarray(jsp.bsr_spmm(jsp.blockify(src, dst, w, n), x, interpret=True))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
@@ -152,7 +169,8 @@ def test_power_chain_matches_jax_and_repeated_dense():
     w *= 0.1  # keep the powers well-conditioned
     dense *= 0.1
     x = rng.normal(size=(n, c)).astype(np.float32)
-    ys = power_chain(blockify(src, dst, w, n, device="cpu"), torch.as_tensor(x), k).numpy()
+    adj = _csr(src, dst, w, n)
+    ys = power_chain_of(lambda y: bsr_spmm(adj, y), torch.as_tensor(x), k).numpy()
     want = np.asarray(jsp.power_chain(jsp.blockify(src, dst, w, n), x, k, interpret=True))
     np.testing.assert_allclose(ys, want, rtol=1e-3, atol=1e-5)
     r = x
@@ -163,16 +181,18 @@ def test_power_chain_matches_jax_and_repeated_dense():
 
 def test_empty_row_blocks_zeroed():
     # Nodes 128..255 have no incident edges: the second row block holds only
-    # the explicit zero block and its output rows are 0.
+    # the explicit zero block, the CSR form no entry there, and both give 0
+    # in those output rows.
     n = 260
     src = np.array([0, 1, 2], np.int32)
     dst = np.array([1, 2, 0], np.int32)
     w = np.ones(3, np.float32)
     adj = blockify(src, dst, w, n, device="cpu")
     assert adj.row_ptr.tolist() == [0, 1, 2, 3]
-    y = bsr_spmm(adj, torch.ones((n, 5))).numpy()
-    assert np.all(y[128:256] == 0)
-    assert y[:3].sum() == 3 * 5
+    for y in (bsr_spmm(_csr(src, dst, w, n), torch.ones((n, 5))).numpy(),
+              bsr_spmm_reference(adj, torch.ones((n, 5))).numpy()):
+        assert np.all(y[128:256] == 0)
+        assert y[:3].sum() == 3 * 5
 
 
 def test_reference_reads_column_blocks_past_x_as_zero():
@@ -269,3 +289,21 @@ def test_num_blocks_matches_blockify(n, e, c):
     rng = np.random.default_rng(n + 2)
     src, dst, w, _ = _random_coo(rng, max(1, n // 2), e)
     assert num_blocks(src, dst, n) == blockify(src, dst, w, n, device="cpu").num_blocks
+
+
+@pytest.mark.parametrize("bad", ["x_rows", "float64_x", "blocked"])
+def test_bsr_spmm_refuses_what_the_kernel_does_not_take_on_the_cpu(bad):
+    """The CPU route makes the checks the card's makes on x and M: x's rows
+    must be M's columns, x float32, and M a ``CsrMatrix``."""
+    src, dst, w, _ = _random_coo(np.random.default_rng(4), 50, 200)
+    adj, x = _csr(src, dst, w, 50), torch.ones((50, 3))
+    if bad == "x_rows":
+        x = torch.ones((49, 3))
+    elif bad == "float64_x":
+        x = x.double()
+    else:
+        adj = blockify(src, dst, w, 50, device="cpu")
+    before = bsr_spmm.launches
+    with pytest.raises(ValueError if bad == "x_rows" else TypeError):
+        bsr_spmm(adj, x)
+    assert bsr_spmm.launches == before
