@@ -392,13 +392,40 @@ def phase_build() -> None:
         print(f"  {k.name}: nvcc {k.seconds:.2f} s; " + " | ".join(usage))
 
 
+def by_id_kwargs(dg, links, nodes, mask, sign_k, max_ccn=0, strategy=""):
+    """The kwargs of ``pos_power_rows`` as the global route calls it on one
+    batch (``operators/pos.pos_operators_global``): the graph's table,
+    degrees and features read by node id, with the batch's selected rows,
+    row ids and links (``by_id_kernel_inputs``)."""
+    from s3grl_tpu_torch.operators.pos import by_id_kernel_inputs
+
+    sel, row_ids, lk, _ = by_id_kernel_inputs(dg, links, nodes, mask, max_ccn=max_ccn,
+                                              strategy=strategy)
+    return dict(sel_idx=sel, nbr=dg.nbr, w=dg.degrees(), subg_x=dg.x_with_indicator(),
+                sign_k=sign_k, row_ids=row_ids, links=lk)
+
+
+def gathered_kwargs(kw):
+    """A by-id call's kwargs as the gathered per-batch [B, S, *] arrays it
+    stands for (``pos_kernel.gather_by_id``: those of
+    ``operators/pos.global_kernel_inputs``, the global route's inputs before
+    it read by id)."""
+    from s3grl_tpu_torch.ops.pos_kernel import gather_by_id
+
+    nbr, w, x = gather_by_id(kw["nbr"], kw["w"], kw["subg_x"], kw["row_ids"], kw["links"])
+    return dict(sel_idx=kw["sel_idx"], nbr=nbr, w=w, subg_x=x, sign_k=kw["sign_k"],
+                row_ids=kw["row_ids"])
+
+
 def kernel_cases(cfg, graph, split):
     """Kernel inputs at the main path's shapes, from the main path's data:
-    (label, kwargs of pos_power_rows, node mask [B, S] of the member slots)."""
+    (label, kwargs of pos_power_rows, node mask [B, S] of the member slots).
+    The global cases ("global", "hub global", "blog global") read the graph
+    by id, as the global route does (:func:`by_id_kwargs`)."""
     import torch
 
     from s3grl_tpu_torch.data.features import init_features
-    from s3grl_tpu_torch.operators.pos import batch_cap, global_kernel_inputs
+    from s3grl_tpu_torch.operators.pos import batch_cap
     from s3grl_tpu_torch.sampling.extraction import (
         DeviceGraph, extract_node_sets, extract_subgraphs,
     )
@@ -418,12 +445,8 @@ def kernel_cases(cfg, graph, split):
         B = batch_cap(S, F, D, ccn, cfg.extract_batch_size)
         lb = links_for(B)
         nodes, mask, _, _ = extract_node_sets(dg, lb, num_hops=cfg.num_hops, max_nodes=S)
-        sel, nbr, w, x, row_ids, _ = global_kernel_inputs(
-            dg, lb, nodes, mask, max_ccn=ccn, strategy=strategy
-        )
-        label = f"global S={S} R={sel.shape[1]} B={B}"
-        cases.append((label, dict(sel_idx=sel, nbr=nbr, w=w, subg_x=x,
-                                  sign_k=cfg.sign_k, row_ids=row_ids), mask))
+        kw = by_id_kwargs(dg, lb, nodes, mask, cfg.sign_k, ccn, strategy)
+        cases.append((f"global S={S} R={kw['sel_idx'].shape[1]} B={B}", kw, mask))
     S = 128
     B = batch_cap(S, F, D, 0, cfg.extract_batch_size)
     sub = extract_subgraphs(dg, links_for(B), num_hops=cfg.num_hops, max_nodes=S)
@@ -437,6 +460,7 @@ def kernel_cases(cfg, graph, split):
                   sub.node_mask))
     cases += scaled_kernel_cases(cfg, dg, split)
     cases += hub_kernel_cases()
+    cases.append(blog_kernel_case())
     return cases, D, F
 
 
@@ -498,13 +522,18 @@ def bound_of(kw, node_mask) -> tuple:
     """(bound_ms, bound_by, bytes, flops, resolved entries per subgraph,
     bound_ms over every padded slot, bound_ms over the member rows' live
     entries) of one ``pos_power_rows`` call: ``pos_kernel.work`` (its
-    docstring says what it counts) over the card's peak rates."""
+    docstring says what it counts) over the card's peak rates. A by-id call
+    reads no padding: its padded bound is that of the gathered arrays it
+    stands for (:func:`gathered_kwargs`)."""
     from s3grl_tpu_torch.ops.pos_kernel import resolved_entries, work
     from s3grl_tpu_torch.utils.device import bound_ms
 
     rates = card_rates()
-    counts = {c: work(**kw, node_mask=node_mask, count=c) for c in ("members", "padded", "live")}
-    per_subgraph = resolved_entries(kw["nbr"], kw["w"], kw["row_ids"]).cpu().numpy()
+    gathered = gathered_kwargs(kw) if kw["nbr"].dim() == 2 else kw
+    counts = {c: work(**kw, node_mask=node_mask, count=c) for c in ("members", "live")}
+    counts["padded"] = work(**gathered, node_mask=node_mask, count="padded")
+    per_subgraph = resolved_entries(gathered["nbr"], gathered["w"],
+                                    gathered["row_ids"]).cpu().numpy()
     return (*bound_ms(counts["members"], rates), counts["members"].n_bytes,
             counts["members"].flops, per_subgraph, bound_ms(counts["padded"], rates)[0],
             bound_ms(counts["live"], rates)[0])
@@ -541,13 +570,15 @@ def phase_kernels(cfg, graph, split, power_limit: str):
                 f"max abs err {max_abs} (tolerance rtol {TOL['rtol']}, atol {TOL['atol']})"
             )
         spelled_kw = None
+        by_id = kw["nbr"].dim() == 2
         if kw["w"] is None:  # a card-built local table: no weight array
             spelled_kw = {**kw, "w": (kw["nbr"] >= 0).float()}
             if not torch.equal(got, pos_power_rows(**spelled_kw)):
                 raise AssertionError(f"pos_power_rows with w=None differs from w = loc >= 0 "
                                      f"at {label}")
         # Phase 1 alone: the selector rows H against their plain version.
-        sel_kw = {k: kw[k] for k in ("sel_idx", "nbr", "w", "sign_k", "row_ids")}
+        sel_kw = {k: kw[k] for k in ("sel_idx", "nbr", "w", "sign_k", "row_ids", "links")
+                  if k in kw}
         h_err = float((pos_selector_rows(**sel_kw)
                        - pos_selector_rows_reference(**sel_kw)).abs().max())
         if h_err > TOL["atol"]:
@@ -557,13 +588,27 @@ def phase_kernels(cfg, graph, split, power_limit: str):
         with timing.ClockSampler() as clocks:
             ms, device_ms = timing.call_ms(fn), timing.graph_ms(fn)
         host_ms = timing.host_ms(fn)
-        B, S, Dk = kw["nbr"].shape
+        B, S = kw["row_ids"].shape if by_id else kw["nbr"].shape[:2]
+        Dk = kw["nbr"].shape[-1]
         lib = pos_kernel._lib()
         # The selector phase alone, and at K = 0: its one pass over the table
         # (with the hash build and the scaling) without the K steps.
         phase1_ms, table_ms = (timing.graph_ms(lambda: pos_kernel._selector_rows_cuda(
             lib, kw["sel_idx"], kw["nbr"], kw["w"], kw["row_ids"], k, B, S, Dk,
-            kw["sel_idx"].shape[1])) for k in (kw["sign_k"], 0))
+            kw["sel_idx"].shape[1], links=kw.get("links")))
+            for k in (kw["sign_k"], 0))
+        gathered = ""
+        gathered_ms = gathered_bound = None
+        if by_id:  # the same call on the gathered arrays: the same bits, and its time
+            gkw = gathered_kwargs(kw)
+            if not torch.equal(got, pos_power_rows(**gkw)):
+                raise AssertionError(f"pos_power_rows by id differs from the call on the "
+                                     f"gathered arrays at {label}")
+            gathered_ms = timing.graph_ms(lambda: pos_power_rows(**gkw))
+            gathered_bound = bound_of(gkw, node_mask)[0]
+            gathered = (f"; on the gathered [B, S, *] arrays (the same bits) {gathered_ms:.4f} ms, "
+                        f"bound {f4(gathered_bound)} ms")
+            del gkw
         plain_ms = timing.call_ms(lambda: pos_power_rows_reference(**kw), reps=3)
         bound_ms, by, n_bytes, flops, nnz, padded_ms, degree_ms = bound_of(kw, node_mask)
         spelled = ""
@@ -578,7 +623,8 @@ def phase_kernels(cfg, graph, split, power_limit: str):
                            plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=by, phase1_ms=phase1_ms,
                            resolved_entries=int(nnz.sum()), member_rows=members,
-                           padded_bound_ms=padded_ms, degree_bound_ms=degree_ms)
+                           padded_bound_ms=padded_ms, degree_bound_ms=degree_ms,
+                           gathered_device_ms=gathered_ms, gathered_bound_ms=gathered_bound)
         print(f"  {label}: max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} "
               f"(selector rows {h_err:.3e}) kernel {device_ms:.4f} ms device by graph "
               f"replay, {ms:.4f} ms a call on the stream, {host_ms:.4f} ms of host a call "
@@ -591,7 +637,7 @@ def phase_kernels(cfg, graph, split, power_limit: str):
               f"{f4(ratio(bound_ms, device_ms))}; resolved entries {int(nnz.sum())} "
               f"(per subgraph mean {nnz.mean():.1f}, max {int(nnz.max())}; "
               f"{int((nnz > cap).sum())} of {B} over the {cap}-entry shared-memory list)"
-              f"{spelled}")
+              f"{spelled}{gathered}")
     want = next(v for k, v in hub_out.items() if k.startswith("hub global"))
     for label, got in hub_out.items():
         if label.startswith("hub local") and not torch.equal(got[:len(want)], want):
@@ -1456,6 +1502,11 @@ LARGE_FEATURES = 128
 # precompute_pos, the first batch of which the kernel cases take.
 HUB_LINKS = 256
 HUB_FEATURES = 128
+# BlogCatalog's batch on the benchmark's blogcatalog_pos.prep cell: 8 links
+# at S = 4,096 with 1,025 feature columns (+ the indicator: 1,026).
+BLOG_B = 8
+BLOG_S = 4_096
+BLOG_FEATURES = 1_025
 # The narrow-local graph: LARGE_PREP_NODES nodes of average degree 20 and
 # NARROW_HUBS hubs, NARROW_LINKS random links, 1 hop: subgraphs of ~40 nodes
 # whose local degrees stay small beside a global table 3,008 wide.
@@ -1748,8 +1799,8 @@ SWEEP = {"hub": (1024, 2048, 3072), "arxiv-shaped": (128, 256, 512),
 
 
 def threshold_rows(dg, links, name: str, sizes, hops: int = LARGE_HOPS) -> dict:
-    """One batch's PoS operators by the global route (``global_kernel_inputs``,
-    then ``pos_power_rows``) and by the local route
+    """One batch's PoS operators by the global route (``pos_operators_global``:
+    ``pos_power_rows`` reading the graph by id) and by the local route
     (``local_table_kernel_inputs``, then ``pos_power_rows``), each at its
     own batch cap, on the host BFS's node sets of ``links`` at each S of
     ``sizes`` (the largest subgraphs first), equal bit for bit on the links
@@ -1760,7 +1811,7 @@ def threshold_rows(dg, links, name: str, sizes, hops: int = LARGE_HOPS) -> dict:
 
     from s3grl_tpu_torch import native
     from s3grl_tpu_torch.operators.pos import (
-        batch_cap, global_kernel_inputs, local_table_kernel_inputs, local_table_width,
+        batch_cap, local_table_kernel_inputs, local_table_width, pos_operators_global,
     )
     from s3grl_tpu_torch.ops.pos_kernel import pos_power_rows
     from s3grl_tpu_torch.utils import timing
@@ -1768,8 +1819,7 @@ def threshold_rows(dg, links, name: str, sizes, hops: int = LARGE_HOPS) -> dict:
     D, F = int(dg.nbr.shape[1]), int(dg.x.shape[1])
 
     def global_ops(lb, nodes, mask):
-        sel, nbr, w, x, row_ids, rm = global_kernel_inputs(dg, lb, nodes, mask)
-        return pos_power_rows(sel, nbr, w, x, sign_k=3, row_ids=row_ids) * rm[:, None, :, None]
+        return pos_operators_global(dg, lb, nodes, mask, sign_k=3)[0]
 
     def local_ops(lb, nodes, mask):
         sel, loc, w, x, rm = local_table_kernel_inputs(dg, lb, nodes, mask)
@@ -1911,26 +1961,48 @@ def hub_batch(local: bool = False):
 
 def hub_kernel_cases():
     """``pos_power_rows`` on the hub graph's first batches (:func:`hub_batch`):
-    the global route's (B = 32) with global ids on the global table; the
+    the global route's (B = 32) reading the global table by id; the
     same 32 links on the local tables the card builds for them
     (``local_table_kernel_inputs``), the before-and-after pair; and the local
     route's own first batch (B = 64), as (label, kwargs, node mask)."""
-    from s3grl_tpu_torch.operators.pos import (
-        batch_cap, global_kernel_inputs, local_table_kernel_inputs,
-    )
+    from s3grl_tpu_torch.operators.pos import batch_cap, local_table_kernel_inputs
 
     dg, links, nodes, mask = hub_batch(local=True)
     D = int(dg.nbr.shape[1])
     B = batch_cap(LARGE_S, HUB_FEATURES, D, 0, 256)
-    sel, nbr, w, x, row_ids, _ = global_kernel_inputs(dg, links[:B], nodes[:B], mask[:B])
     cases = [(f"hub global S={LARGE_S} D={D} R=2 B={B}",
-              dict(sel_idx=sel, nbr=nbr, w=w, subg_x=x, sign_k=3, row_ids=row_ids), mask[:B])]
+              by_id_kwargs(dg, links[:B], nodes[:B], mask[:B], 3), mask[:B])]
     for b in (B, len(links)):
         lsel, loc, lw, lx, _ = local_table_kernel_inputs(dg, links[:b], nodes[:b], mask[:b])
         cases.append((f"hub local S={LARGE_S} D={loc.shape[2]} R=2 B={b}",
                       dict(sel_idx=lsel, nbr=loc, w=lw, subg_x=lx, sign_k=3, row_ids=None),
                       mask[:b]))
     return cases
+
+
+def blog_kernel_case():
+    """``pos_power_rows`` at BlogCatalog's batch on the benchmark's
+    ``blogcatalog_pos.prep`` cell, by id: BLOG_B observed links of the hub
+    graph (BlogCatalog's size and skew) with their 2-hop sets at BLOG_S and
+    BLOG_FEATURES seeded normal feature columns (the cell's one-hot degree
+    width), which takes the split selector (B below the card's SMs), as
+    (label, kwargs, node mask)."""
+    import torch
+
+    from s3grl_tpu_torch import native
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+
+    g, _, links = hub_graph()
+    x = np.random.default_rng(SEED + 1).normal(size=(g.num_nodes, BLOG_FEATURES))
+    dg = DeviceGraph.from_graph(Graph(num_nodes=g.num_nodes, edge_index=g.edge_index,
+                                      x=x.astype(np.float32)), device="cuda")
+    lk = np.ascontiguousarray(links[:BLOG_B])
+    nd, _ = native.khop_nodes(*dg.host_csr(), lk, LARGE_HOPS, BLOG_S)
+    nodes = torch.as_tensor(np.where(nd >= 0, nd, 0), device="cuda")
+    mask = torch.as_tensor(nd >= 0, device="cuda")
+    kw = by_id_kwargs(dg, torch.as_tensor(lk, device="cuda"), nodes, mask, 3)
+    return f"blog global S={BLOG_S} D={int(dg.nbr.shape[1])} R=2 B={BLOG_B}", kw, mask
 
 
 def phase_sampled_paths(cfg, graph, split) -> dict:
@@ -2356,6 +2428,13 @@ def main(argv=None) -> int:
         "selector_phase_ms": r["phase1_ms"],
         "resolved_entries": r["resolved_entries"], "member_rows": r["member_rows"],
         "padded_bound_ms": r["padded_bound_ms"],
+        "gathered_device_ms": r["gathered_device_ms"],
+        "blogcatalog_batch": [{
+            "shape": k, "max_abs_err": v["max_abs_err"], "device_ms": v["device_ms"],
+            "profiler_ms": v["profiler_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"], "gathered_device_ms": v["gathered_device_ms"],
+            "gathered_bound_ms": v["gathered_bound_ms"]}
+            for k, v in rows.items() if k.startswith("blog ")],
         "launches_by_path": by_path["pos_power_rows"],
         "local_slot": [{
             "shape": k, "max_abs_err": v["max_abs_err"], "ms": v["ms"],

@@ -9,6 +9,17 @@
 // nbr[s, d] >= 0 and 0 elsewhere, the table local_table.cu writes, so no
 // weight array is read.
 //
+// By id (deg non-null; the global route): nbr is the graph's own table
+// [N, D] and x the graph's features [N, F] (column 0 set aside for the
+// indicator), read by the batch's row ids [B, S] (-1 on an empty slot).
+// Slot s reads row row_ids[s] of nbr, its first deg[row_ids[s]] entries
+// (none on an empty slot), each of weight 1 (the global route's adjacency is
+// binary), except that row 0 drops the entries equal to the link's dst and
+// row 1 those equal to its src (links [B, 2]). X's row s is x[row_ids[s]]
+// (zero on an empty slot) with column 0 the indicator, 1 on slots 0 and 1.
+// Nothing of [B, S, *] is built for the call; the result is the bits of the
+// same call on the gathered arrays.
+//
 // The TPU kernel keeps a dense [S, S] plane on chip. Here nothing is
 // densified: the selected rows are carried as H_k = H_{k-1} Â in the gather
 // form of the same product, exact for any table, symmetric or not:
@@ -78,6 +89,7 @@ constexpr int kListCap = 4096; // compact entries kept in shared memory (32 KB)
 constexpr int kStageMax = 1024; // entries of one table row a warp stages (8 KB)
 constexpr int kRT = 8;         // selector rows per warp in the X pass
 constexpr int kNV = 2;         // column chunks per lane in the X pass
+constexpr int kXRows = 8;      // rows s of X a warp has in flight in the X pass by id
 constexpr int kMaxRowGroupsPerBlock = 4;
 constexpr int kThreads2 = 128;  // the most threads of an X-pass block
 constexpr unsigned kFull = 0xffffffffu;
@@ -118,20 +130,46 @@ __device__ __forceinline__ void resolve(const int (&id)[kChunks], const bool (&l
   }
 }
 
-// Width of a warp's staging row: the table's width up to kStageMax, else 0.
-// The rows of a wider table (a hub's global row) are read twice instead:
-// once to count and sum, once to write each entry to its place.
+// Width of a warp's staging row on a table of D entries a row: D up to
+// kStageMax, else 0. A row longer than its warp's staging row (a hub's
+// global row) is read twice instead: once to count and sum, once to write
+// each entry to its place. By id the host picks the width from the shared
+// memory left (s3grl_pos_stage_width), and a row is staged by its degree.
 __host__ __device__ __forceinline__ int stage_width(int D) {
   return D <= kStageMax ? D : 0;
 }
 
+// Slot s's row of the table: its entries, weights (null: 1 where the id is
+// >= 0), how many to read and the id it drops (-1: none). By id (deg
+// non-null) the row row_ids[s] of the graph's table, up to its degree, with
+// the target link dropped on rows 0 and 1; else row s of the batch's table.
+struct TableRow {
+  const int* ids;
+  const float* w;
+  int n;
+  int drop;
+};
+
+__device__ __forceinline__ TableRow table_row(const int* nbr_b, const float* w_b,
+                                              const int* deg, const int* ids_b,
+                                              const int* link, int s, int D) {
+  if (deg != nullptr) {
+    const int id = ids_b[s];
+    return TableRow{nbr_b + static_cast<int64_t>(id < 0 ? 0 : id) * D, nullptr,
+                    id < 0 ? 0 : deg[id], s == 0 ? link[1] : s == 1 ? link[0] : -1};
+  }
+  return TableRow{nbr_b + static_cast<int64_t>(s) * D,
+                  w_b != nullptr ? w_b + static_cast<int64_t>(s) * D : nullptr, D, -1};
+}
+
 // Weights and slots (-1 where absent) of the kChunks·32 entries of one
-// table row from column d0, lane `lane` taking every 32nd. A null `wrow`
-// (local slots only) weighs 1 where the slot is >= 0 and 0 elsewhere: the
-// table of local_table.cu, which carries no weight array.
+// table row from column d0 (of its first D), lane `lane` taking every 32nd.
+// A null `wrow` weighs 1 where the id is >= 0 and 0 elsewhere (the table of
+// local_table.cu, which carries no weight array, or a row read by id); an
+// entry equal to `drop` (>= 0) weighs 0.
 __device__ __forceinline__ void load_chunks(const int* nrow, const float* wrow, int D, int d0,
-                                            int lane, const int* hkeys, const int* hslots,
-                                            int S, bool has_ids, int log_t,
+                                            int lane, int drop, const int* hkeys,
+                                            const int* hslots, int S, bool has_ids, int log_t,
                                             float (&wt)[kChunks], int (&l)[kChunks]) {
   int id[kChunks];
   bool live[kChunks];
@@ -153,6 +191,11 @@ __device__ __forceinline__ void load_chunks(const int* nrow, const float* wrow, 
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) wt[c] = id[c] >= 0 ? 1.f : 0.f;
   }
+  if (drop >= 0) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+      if (id[c] == drop) wt[c] = 0.f;
+  }
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) live[c] = wt[c] != 0.f;
   resolve(id, live, hkeys, hslots, S, has_ids, log_t, l);
@@ -173,12 +216,14 @@ __device__ __forceinline__ int2* entry(int2* list, int2* spill, int cap, int i) 
 template <int kRowChunk>
 __global__ void __launch_bounds__(kThreads1)
 pos_selector_rows_kernel(const int* __restrict__ sel,      // [B, R]
-                         const int* __restrict__ nbr,      // [B, S, D]
-                         const float* __restrict__ w,      // [B, S, D], or null (local slots)
+                         const int* __restrict__ nbr,      // [B, S, D], or [N, D] by id
+                         const float* __restrict__ w,      // [B, S, D], or null
                          const int* __restrict__ row_ids,  // [B, S] or null (slot iota)
+                         const int* __restrict__ deg,      // [N] by id, else null
+                         const int* __restrict__ links,    // [B, 2] by id, else null
                          float* h,                         // [B, S, KRP], read back
                          int2* __restrict__ spill_all,     // [B, S*D - cap] or null
-                         int S, int D, int R, int K, int KRP, int cap, int log_t,
+                         int S, int D, int R, int K, int KRP, int cap, int log_t, int sw,
                          int h_in_smem) {
   extern __shared__ int4 smem_i4[];
   const bool has_ids = row_ids != nullptr;
@@ -188,8 +233,6 @@ pos_selector_rows_kernel(const int* __restrict__ sel,      // [B, R]
   const int warp = tid >> 5;
   const int n_hash = has_ids ? 1 << log_t : 0;
 
-  const int sw = stage_width(D);
-  const bool staged = sw > 0;  // every row fits its warp's staging row
   int2* list = reinterpret_cast<int2*>(smem_i4);      // [cap] (slot, w or ŵ)
   int2* stage = list + cap;                           // [kWarps1, sw]
   float* rdeg = reinterpret_cast<float*>(stage + kWarps1 * sw);  // [S]
@@ -203,8 +246,11 @@ pos_selector_rows_kernel(const int* __restrict__ sel,      // [B, R]
   float* hs = reinterpret_cast<float*>(hslots + n_hash);  // [2, S, R] when h_in_smem
 
   const int64_t tab = static_cast<int64_t>(b) * S * D;
-  const int* nbr_b = nbr + tab;
+  const bool by_id = deg != nullptr;
+  const int* nbr_b = by_id ? nbr : nbr + tab;
   const float* w_b = w != nullptr ? w + tab : nullptr;
+  const int* ids_b = has_ids ? row_ids + static_cast<int64_t>(b) * S : nullptr;
+  const int* link = by_id ? links + 2 * static_cast<int64_t>(b) : nullptr;
   int2* spill = spill_all != nullptr
                     ? spill_all + static_cast<int64_t>(b) * (static_cast<int64_t>(S) * D - cap)
                     : nullptr;
@@ -233,21 +279,22 @@ pos_selector_rows_kernel(const int* __restrict__ sel,      // [B, R]
   }
 
   // The one pass over the table: a warp per source row s, kChunks chunks of
-  // the row loaded at once. A row wider than the staging row is read a
+  // the row loaded at once. A row longer than the staging row is read a
   // second time to write its entries, in the same order.
   int2* st = stage + warp * sw;
   for (int s = warp; s < S; s += kWarps1) {
     int n = 0;
     float cd = 0.f;
-    const int* nrow = nbr_b + static_cast<int64_t>(s) * D;
-    const float* wrow = w_b != nullptr ? w_b + static_cast<int64_t>(s) * D : nullptr;
-    for (int d0 = 0; d0 < D; d0 += 32 * kChunks) {
+    const TableRow row = table_row(nbr_b, w_b, deg, ids_b, link, s, D);
+    const bool staged = row.n <= sw;
+    for (int d0 = 0; d0 < row.n; d0 += 32 * kChunks) {
       int l[kChunks];
       float wt[kChunks];
-      load_chunks(nrow, wrow, D, d0, lane, hkeys, hslots, S, has_ids, log_t, wt, l);
+      load_chunks(row.ids, row.w, row.n, d0, lane, row.drop, hkeys, hslots, S, has_ids, log_t,
+                  wt, l);
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
-        if (d0 + c * 32 >= D) break;  // the same in every lane
+        if (d0 + c * 32 >= row.n) break;  // the same in every lane
         const unsigned hit = __ballot_sync(kFull, l[c] >= 0);
         if (l[c] >= 0) {
           if (staged)
@@ -272,13 +319,14 @@ pos_selector_rows_kernel(const int* __restrict__ sel,      // [B, R]
       for (int i = lane; i < n; i += 32) *entry(list, spill, cap, off + i) = st[i];
     } else {
       int m = off;
-      for (int d0 = 0; d0 < D; d0 += 32 * kChunks) {
+      for (int d0 = 0; d0 < row.n; d0 += 32 * kChunks) {
         int l[kChunks];
         float wt[kChunks];
-        load_chunks(nrow, wrow, D, d0, lane, hkeys, hslots, S, has_ids, log_t, wt, l);
+        load_chunks(row.ids, row.w, row.n, d0, lane, row.drop, hkeys, hslots, S, has_ids,
+                    log_t, wt, l);
 #pragma unroll
         for (int c = 0; c < kChunks; ++c) {
-          if (d0 + c * 32 >= D) break;
+          if (d0 + c * 32 >= row.n) break;
           const unsigned hit = __ballot_sync(kFull, l[c] >= 0);
           if (l[c] >= 0)
             *entry(list, spill, cap, m + __popc(hit & ((1u << lane) - 1u))) =
@@ -376,8 +424,10 @@ pos_selector_rows_kernel(const int* __restrict__ sel,      // [B, R]
 //    entries in a fixed order (rows by t, entries in table order) and sums
 //    their weights into the block's shared rowdeg partial, lanes that name
 //    one slot adding in lane order: the sums repeat bit for bit, weights
-//    of any value. One plain store a slot writes the partial to
-//    rpart [B, P, S]; there are no global atomics.
+//    of any value. By id every weight is 1, so the pass itself counts them
+//    by shared-memory atomics, exact in any order, and no walk runs. One
+//    plain store a slot writes the partial to rpart [B, P, S]; there are
+//    no global atomics.
 // 2. pos_selector_degree_kernel sums the P partials of each slot in the
 //    order p = 0..P-1 and turns both degrees into their inverse square
 //    roots (0 for a zero degree), in place for cdeg.
@@ -400,9 +450,11 @@ __host__ __device__ __forceinline__ int rows_of(int S, int P, int p) {
 }
 
 __global__ void __launch_bounds__(kThreads1)
-pos_selector_table_kernel(const int* __restrict__ nbr,      // [B, S, D]
-                          const float* __restrict__ w,      // [B, S, D], or null (local slots)
+pos_selector_table_kernel(const int* __restrict__ nbr,      // [B, S, D], or [N, D] by id
+                          const float* __restrict__ w,      // [B, S, D], or null
                           const int* __restrict__ row_ids,  // [B, S] or null (slot iota)
+                          const int* __restrict__ deg,      // [N] by id, else null
+                          const int* __restrict__ links,    // [B, 2] by id, else null
                           float* __restrict__ h,            // [B, S, KRP]: zero columns KR..
                           int2* __restrict__ list,          // [B, S, D] (slot, w)
                           int* __restrict__ rcnt,           // [B, S] entries of row s
@@ -425,8 +477,11 @@ pos_selector_table_kernel(const int* __restrict__ nbr,      // [B, S, D]
   int* hslots = hkeys + n_hash;                     // [n_hash]
 
   const int64_t row0 = static_cast<int64_t>(b) * S;
-  const int* nbr_b = nbr + row0 * D;
+  const bool by_id = deg != nullptr;
+  const int* nbr_b = by_id ? nbr : nbr + row0 * D;
   const float* w_b = w != nullptr ? w + row0 * D : nullptr;
+  const int* ids_b = has_ids ? row_ids + row0 : nullptr;
+  const int* link = by_id ? links + 2 * static_cast<int64_t>(b) : nullptr;
   int2* list_b = list + row0 * D;
 
   for (int i = tid; i < S; i += kThreads1) rdeg[i] = 0.f;
@@ -456,20 +511,21 @@ pos_selector_table_kernel(const int* __restrict__ nbr,      // [B, S, D]
     const int s = p + P * t;
     int n = 0;
     float cd = 0.f;
-    const int* nrow = nbr_b + static_cast<int64_t>(s) * D;
-    const float* wrow = w_b != nullptr ? w_b + static_cast<int64_t>(s) * D : nullptr;
+    const TableRow row = table_row(nbr_b, w_b, deg, ids_b, link, s, D);
     int2* out = list_b + static_cast<int64_t>(s) * D;
-    for (int d0 = 0; d0 < D; d0 += 32 * kChunks) {
+    for (int d0 = 0; d0 < row.n; d0 += 32 * kChunks) {
       int l[kChunks];
       float wt[kChunks];
-      load_chunks(nrow, wrow, D, d0, lane, hkeys, hslots, S, has_ids, log_t, wt, l);
+      load_chunks(row.ids, row.w, row.n, d0, lane, row.drop, hkeys, hslots, S, has_ids, log_t,
+                  wt, l);
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
-        if (d0 + c * 32 >= D) break;  // the same in every lane
+        if (d0 + c * 32 >= row.n) break;  // the same in every lane
         const unsigned hit = __ballot_sync(kFull, l[c] >= 0);
         if (l[c] >= 0) {
           out[n + __popc(hit & ((1u << lane) - 1u))] = make_int2(l[c], __float_as_int(wt[c]));
           cd += wt[c];
+          if (by_id) atomicAdd(&rdeg[l[c]], 1.f);  // counts: exact in any order
         }
         n += __popc(hit);
       }
@@ -483,8 +539,9 @@ pos_selector_table_kernel(const int* __restrict__ nbr,      // [B, S, D]
   }
   __syncthreads();
 
-  // The block's rowdeg partial, summed by warp 0 alone in a fixed order.
-  if (warp == 0) {
+  // The block's rowdeg partial, summed by warp 0 alone in a fixed order
+  // (by id, where every weight is 1, counted in the pass above instead).
+  if (warp == 0 && !by_id) {
     int total = 0;  // rpre[t] becomes the first entry of row t
     for (int t0 = 0; t0 < T; t0 += 32) {
       int v = t0 + lane < T ? rpre[t0 + lane + 1] : 0;
@@ -647,10 +704,30 @@ struct Vec<2> {
 // all on one column tile. Block x is (row-group block z, column tile t,
 // subgraph group), z fastest: the blocks that read the same X columns run
 // next to each other, so X comes from device memory once and from L2 after.
-template <int VEC>
+// By id (ids non-null) X's row s of subgraph b is x[ids[b, s]], zero on an
+// empty slot, with column 0 the indicator, 1 on slots 0 and 1: x_row gives
+// the row's id in x and whether it is read, indicator its column 0.
+__device__ __forceinline__ int x_row(const int* ids_b, int s, bool& live) {
+  if (ids_b == nullptr) {
+    live = true;
+    return s;
+  }
+  const int id = __ldg(ids_b + s);
+  live = id >= 0;
+  return live ? id : 0;
+}
+
+__device__ __forceinline__ float indicator(bool live, int s) {
+  return live && s < 2 ? 1.f : 0.f;
+}
+
+// kById: X read by id (ids non-null); its own instantiation, so that the
+// loop over a batch's own X keeps its registers.
+template <int VEC, bool kById>
 __global__ void __launch_bounds__(kThreads2, 2)
 pos_xpass_kernel(const int* __restrict__ sel,  // [B, R]
-                 const float* __restrict__ x,  // [B, S, F]
+                 const float* __restrict__ x,  // [B, S, F], or [N, F] by id
+                 const int* __restrict__ ids,  // [B, S] by id, else null
                  const float* __restrict__ h,  // [B, S, KRP] or null when K = 0
                  float* __restrict__ out,      // [B, K+1, R, F]
                  int B, int S, int F, int R, int KR, int KRP, int rg_blk, int sb,
@@ -664,8 +741,10 @@ pos_xpass_kernel(const int* __restrict__ sel,  // [B, R]
   if (b >= B) return;
   const int g = z * rg_blk + warp % rg_blk;
   const int col0 = t * (32 * kCols);
-  const float* x_b = x + static_cast<int64_t>(b) * S * F;
+  const int* ids_b = kById ? ids + static_cast<int64_t>(b) * S : nullptr;
+  const float* x_b = kById ? x : x + static_cast<int64_t>(b) * S * F;
   float* out_b = out + static_cast<int64_t>(b) * (KR + R) * F;
+  const bool ind_lane = kById && col0 + lane == 0;  // holds column 0
 
   int cols[kNV];
 #pragma unroll
@@ -675,17 +754,19 @@ pos_xpass_kernel(const int* __restrict__ sel,  // [B, R]
   if (g == 0) {
     for (int r = 0; r < R; ++r) {
       const int row = sel[static_cast<int64_t>(b) * R + r];
-      const bool in = row >= 0 && row < S;
+      bool in = row >= 0 && row < S;
+      const int xr = in ? x_row(ids_b, row, in) : 0;
 #pragma unroll
       for (int q = 0; q < kNV; ++q) {
         if (cols[q] >= F) continue;
         float v[VEC];
         if (in) {
-          Vec<VEC>::load(x_b + static_cast<int64_t>(row) * F + cols[q], v);
+          Vec<VEC>::load(x_b + static_cast<int64_t>(xr) * F + cols[q], v);
         } else {
 #pragma unroll
           for (int e = 0; e < VEC; ++e) v[e] = 0.f;
         }
+        if (q == 0 && ind_lane) v[0] = indicator(in, row);
         Vec<VEC>::store(out_b + static_cast<int64_t>(r) * F + cols[q], v);
       }
     }
@@ -699,25 +780,51 @@ pos_xpass_kernel(const int* __restrict__ sel,  // [B, R]
     for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
 
   const float* h_b = h + static_cast<int64_t>(b) * S * KRP + g * kRT;
-#pragma unroll 8
-  for (int s = 0; s < S; ++s) {
+  // Row s of X times row s of H into the sums; xr is the row's id in x
+  // (-1: an empty slot, a zero row).
+  auto add_row = [&](int s, int xr) {
+    const bool live = xr >= 0;
     float xv[kCols];
 #pragma unroll
     for (int q = 0; q < kNV; ++q) {
-      if (cols[q] < F) {
-        Vec<VEC>::load(x_b + static_cast<int64_t>(s) * F + cols[q], xv + q * VEC);
+      if (live && cols[q] < F) {
+        Vec<VEC>::load(x_b + static_cast<int64_t>(xr) * F + cols[q], xv + q * VEC);
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) xv[q * VEC + e] = 0.f;
       }
     }
+    if (ind_lane) xv[0] = indicator(live, s);
     const float4 h0 = __ldg(reinterpret_cast<const float4*>(h_b + static_cast<int64_t>(s) * KRP));
-    const float4 h1 = __ldg(reinterpret_cast<const float4*>(h_b + static_cast<int64_t>(s) * KRP + 4));
+    const float4 h1 =
+        __ldg(reinterpret_cast<const float4*>(h_b + static_cast<int64_t>(s) * KRP + 4));
     const float hv[kRT] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
 #pragma unroll
     for (int i = 0; i < kRT; ++i)
 #pragma unroll
       for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(hv[i], xv[j], acc[i][j]);
+  };
+  if constexpr (kById) {
+    // kXRows rows s in flight, the ids of the next kXRows rows loaded a
+    // round ahead, so no row's X load waits on its id's load.
+    const int s_main = S - S % kXRows;
+    int next[kXRows];
+#pragma unroll
+    for (int j = 0; j < kXRows; ++j) next[j] = j < s_main ? __ldg(ids_b + j) : -1;
+    for (int s0 = 0; s0 < s_main; s0 += kXRows) {
+      int cur[kXRows];
+#pragma unroll
+      for (int j = 0; j < kXRows; ++j) {
+        cur[j] = next[j];
+        next[j] = s0 + kXRows + j < s_main ? __ldg(ids_b + s0 + kXRows + j) : -1;
+      }
+#pragma unroll
+      for (int j = 0; j < kXRows; ++j) add_row(s0 + j, cur[j]);
+    }
+    for (int s = s_main; s < S; ++s) add_row(s, __ldg(ids_b + s));
+  } else {
+#pragma unroll 8
+    for (int s = 0; s < S; ++s) add_row(s, s);
   }
 
 #pragma unroll
@@ -766,7 +873,8 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, bool live) 
 template <int VEC>
 __global__ void __launch_bounds__(kTThreads, 2)
 pos_xpass_tiled_kernel(const int* __restrict__ sel,  // [B, R]
-                       const float* __restrict__ x,  // [B, S, F]
+                       const float* __restrict__ x,  // [B, S, F], or [N, F] by id
+                       const int* __restrict__ ids,  // [B, S] by id, else null
                        const float* __restrict__ h,  // [B, S, KRP]
                        float* __restrict__ out,      // [B, K+1, R, F]
                        int S, int F, int R, int KR, int KRP, int n_tiles) {
@@ -780,7 +888,8 @@ pos_xpass_tiled_kernel(const int* __restrict__ sel,  // [B, R]
   const int row0 = (blockIdx.x / n_tiles) * kTRows;
   const int b = blockIdx.y;
   const int col0 = t * kTN;
-  const float* x_b = x + static_cast<int64_t>(b) * S * F;
+  const int* ids_b = ids != nullptr ? ids + static_cast<int64_t>(b) * S : nullptr;
+  const float* x_b = ids != nullptr ? x : x + static_cast<int64_t>(b) * S * F;
   const float* h_b = h + static_cast<int64_t>(b) * S * KRP;
   float* out_b = out + static_cast<int64_t>(b) * (KR + R) * F;
 
@@ -788,9 +897,13 @@ pos_xpass_tiled_kernel(const int* __restrict__ sel,  // [B, R]
     for (int i = tid; i < R * kTN; i += kTThreads) {
       const int r = i / kTN, col = col0 + i % kTN;
       const int row = sel[static_cast<int64_t>(b) * R + r];
+      bool in = row >= 0 && row < S;
+      const int xr = in ? x_row(ids_b, row, in) : 0;
       if (col < F)
         out_b[static_cast<int64_t>(r) * F + col] =
-            row >= 0 && row < S ? x_b[static_cast<int64_t>(row) * F + col] : 0.f;
+            ids_b != nullptr && col == 0 ? indicator(in, row)
+            : in                         ? x_b[static_cast<int64_t>(xr) * F + col]
+                                         : 0.f;
     }
   }
 
@@ -807,9 +920,16 @@ pos_xpass_tiled_kernel(const int* __restrict__ sel,  // [B, R]
     for (int q = 0; q < kCopiesX; ++q) {
       const int i = tid + q * kTThreads;
       const int ss = s0 + i / (kTN / VEC), col = col0 + (i % (kTN / VEC)) * VEC;
-      const bool live = ss < S && col < F;
-      cp_async<4 * VEC>(&Xs[buf][i / (kTN / VEC)][(i % (kTN / VEC)) * VEC],
-                        live ? x_b + static_cast<int64_t>(ss) * F + col : x_b, live);
+      bool live = ss < S;
+      const int xr = live ? x_row(ids_b, ss, live) : 0;
+      const float* src = x_b + static_cast<int64_t>(xr) * F + col;
+      float* dst = &Xs[buf][i / (kTN / VEC)][(i % (kTN / VEC)) * VEC];
+      if (ids_b != nullptr && col == 0) {  // the indicator, stored here, not copied
+        dst[0] = indicator(live, ss);
+        if constexpr (VEC == 2) dst[1] = live ? __ldg(src + 1) : 0.f;
+      } else {
+        cp_async<4 * VEC>(dst, live && col < F ? src : x_b, live && col < F);
+      }
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
@@ -877,29 +997,43 @@ int s3grl_pos_list_cap(int S, int D) {
   return static_cast<int>(sd < kListCap ? sd : kListCap);
 }
 
-// Bytes of dynamic shared memory the selector kernel needs, with H_{k-1}
-// kept on chip (h_in_smem = 1) or read back from h (0).
-int64_t s3grl_pos_selector_smem(int S, int D, int R, int has_ids, int cap, int h_in_smem) {
-  int64_t bytes = 8 * (static_cast<int64_t>(cap) + static_cast<int64_t>(kWarps1) * stage_width(D));
+// Bytes of dynamic shared memory the selector kernel needs at staging rows
+// of sw entries, with H_{k-1} kept on chip (h_in_smem = 1) or read back
+// from h (0).
+int64_t s3grl_pos_selector_smem(int S, int sw, int R, int has_ids, int cap, int h_in_smem) {
+  int64_t bytes = 8 * (static_cast<int64_t>(cap) + static_cast<int64_t>(kWarps1) * sw);
   bytes += 4 * (4 * static_cast<int64_t>(S) + R + 1);
   if (has_ids) bytes += 8 * (int64_t{1} << hash_log(S));
   if (h_in_smem) bytes += 8 * static_cast<int64_t>(S) * R;
   return bytes;
 }
 
-// Phase 1 on `stream` (w may be null where row_ids is: weight 1 where the
-// slot is >= 0); returns the cudaError_t of the launch (0 = success).
+// Entries of a warp's staging row on a table D wide: stage_width(D), or by
+// id (rows staged by their degree) the most, up to min(D, kStageMax), that
+// keeps the block within `budget` bytes of shared memory (0 where none).
+int s3grl_pos_stage_width(int S, int D, int R, int has_ids, int by_id, int cap, int h_in_smem,
+                          int64_t budget) {
+  if (!by_id) return stage_width(D);
+  const int64_t room = budget - s3grl_pos_selector_smem(S, 0, R, has_ids, cap, h_in_smem);
+  const int64_t fit = room > 0 ? room / (8 * kWarps1) : 0;
+  const int most = D < kStageMax ? D : kStageMax;
+  return fit < most ? static_cast<int>(fit) : most;
+}
+
+// Phase 1 on `stream` (w may be null where row_ids is, and by id, where
+// deg and links are non-null: weight 1 where the id is >= 0); returns the
+// cudaError_t of the launch (0 = success).
 int s3grl_pos_selector_rows(const int* sel, const int* nbr, const float* w,
-                            const int* row_ids, float* h, void* spill, int B, int S,
-                            int D, int R, int K, int cap, int h_in_smem,
-                            int64_t smem_bytes, void* stream) {
+                            const int* row_ids, const int* deg, const int* links, float* h,
+                            void* spill, int B, int S, int D, int R, int K, int cap, int sw,
+                            int h_in_smem, int64_t smem_bytes, void* stream) {
   auto kernel = R <= 2 ? pos_selector_rows_kernel<2> : pos_selector_rows_kernel<8>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<B, kThreads1, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      sel, nbr, w, row_ids, h, static_cast<int2*>(spill), S, D, R, K,
-      s3grl_pos_h_width(R, K), cap, hash_log(S), h_in_smem);
+      sel, nbr, w, row_ids, deg, links, h, static_cast<int2*>(spill), S, D, R, K,
+      s3grl_pos_h_width(R, K), cap, hash_log(S), sw, h_in_smem);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -917,7 +1051,8 @@ int64_t s3grl_pos_selector_split_smem(int S, int has_ids, int P) {
 // then coldeg), rpart [B, P, S] float. Returns the first launch's
 // cudaError_t that is not success, or 0.
 int s3grl_pos_selector_split(const int* sel, const int* nbr, const float* w,
-                             const int* row_ids, float* h, void* list, int* rcnt,
+                             const int* row_ids, const int* deg, const int* links, float* h,
+                             void* list, int* rcnt,
                              float* degs, float* rpart, int B, int S, int D, int R, int K,
                              int P, int64_t smem_bytes, void* stream) {
   if (B > 65535 || P < 1 || P > S) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -932,7 +1067,7 @@ int s3grl_pos_selector_split(const int* sel, const int* nbr, const float* w,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(P, B);
   pos_selector_table_kernel<<<grid, kThreads1, smem_bytes, st>>>(
-      nbr, w, row_ids, h, lst, rcnt, cdeg, rpart, S, D, K * R, KRP, P, hash_log(S));
+      nbr, w, row_ids, deg, links, h, lst, rcnt, cdeg, rpart, S, D, K * R, KRP, P, hash_log(S));
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   pos_selector_degree_kernel<<<dim3((S + 255) / 256, B), 256, 0, st>>>(rpart, rdeg, cdeg, S, P);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
@@ -944,8 +1079,9 @@ int s3grl_pos_selector_split(const int* sel, const int* nbr, const float* w,
   return 0;
 }
 
-// Phase 2 on `stream` (h may be null when K = 0); returns the cudaError_t.
-int s3grl_pos_xpass(const int* sel, const float* x, const float* h, float* out,
+// Phase 2 on `stream` (h may be null when K = 0; ids null unless X is read
+// by id, x then [N, F]); returns the cudaError_t.
+int s3grl_pos_xpass(const int* sel, const float* x, const int* ids, const float* h, float* out,
                     int B, int S, int F, int R, int K, void* stream) {
   const int KRP = s3grl_pos_h_width(R, K);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -957,9 +1093,11 @@ int s3grl_pos_xpass(const int* sel, const float* x, const float* h, float* out,
     if (gx > 0x7fffffff || B > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
     const dim3 grid(static_cast<unsigned>(gx), B);
     if (vec2) {
-      pos_xpass_tiled_kernel<2><<<grid, kTThreads, 0, s>>>(sel, x, h, out, S, F, R, K * R, KRP, n_tiles);
+      pos_xpass_tiled_kernel<2><<<grid, kTThreads, 0, s>>>(sel, x, ids, h, out, S, F, R, K * R,
+                                                           KRP, n_tiles);
     } else {
-      pos_xpass_tiled_kernel<1><<<grid, kTThreads, 0, s>>>(sel, x, h, out, S, F, R, K * R, KRP, n_tiles);
+      pos_xpass_tiled_kernel<1><<<grid, kTThreads, 0, s>>>(sel, x, ids, h, out, S, F, R, K * R,
+                                                           KRP, n_tiles);
     }
     return static_cast<int>(cudaGetLastError());
   }
@@ -973,13 +1111,10 @@ int s3grl_pos_xpass(const int* sel, const float* x, const float* h, float* out,
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int threads = 32 * rg_blk * sb;
   const unsigned grid = static_cast<unsigned>(blocks);
-  if (vec2) {
-    pos_xpass_kernel<2><<<grid, threads, 0, s>>>(sel, x, h, out, B, S, F, R, K * R, KRP,
-                                                 rg_blk, sb, nz, n_tiles);
-  } else {
-    pos_xpass_kernel<1><<<grid, threads, 0, s>>>(sel, x, h, out, B, S, F, R, K * R, KRP,
-                                                 rg_blk, sb, nz, n_tiles);
-  }
+  auto kernel = vec2 ? (ids != nullptr ? pos_xpass_kernel<2, true> : pos_xpass_kernel<2, false>)
+                    : (ids != nullptr ? pos_xpass_kernel<1, true> : pos_xpass_kernel<1, false>);
+  kernel<<<grid, threads, 0, s>>>(sel, x, ids, h, out, B, S, F, R, K * R, KRP, rg_blk, sb, nz,
+                                  n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,8 +11,9 @@ tuned_SIGN.py:137-262). A batch of links is processed at once:
 2. selected rows (the two targets + optional CCN rows, union or
    intersection, tuned_SIGN.py:229-238);
 3. the selected rows of Â^k [1|X] for k = 0..K, through the hand-written
-   kernel ``ops/pos_kernel.pos_power_rows``: on BFS node sets it resolves
-   subgraph membership straight from the global neighbor table, or, on the
+   kernel ``ops/pos_kernel.pos_power_rows``: on BFS node sets it reads the
+   graph's own neighbor table and features by node id and resolves
+   subgraph membership from them, or, on the
    local-table route (below), runs in its local-slot mode (``row_ids=None``)
    on a table the card builds; on ScaLed's local tables it runs in that
    mode too, as the JAX package's ``use_pallas`` route does
@@ -174,6 +175,18 @@ def _slot_kernel_inputs(x_global, nodes, node_mask, nbr_local, nbr_w, *, max_ccn
     return sel_idx, nbr_local, nbr_w, subg_x, row_mask
 
 
+def _count_inputs(by_id: bool, *built: Optional[torch.Tensor]) -> None:
+    """One batch's ``pos.inputs`` counters, from shapes alone: whether its
+    kernel read the graph by id (``pos.inputs.by_id``), and the bytes of the
+    kernel inputs its route built for it on the card (``pos.inputs.bytes``).
+    The kernel's own scratch is not an input and is not counted: its
+    selector's list of resolved entries is sized by the table's padded
+    width ([B, S, D] int2 where the selector is split, 755 MB at
+    BlogCatalog's B = 8, S = 4,096, D = 2,880)."""
+    count("pos.inputs.by_id", by_id)
+    count("pos.inputs.bytes", sum(t.numel() * t.element_size() for t in built if t is not None))
+
+
 def local_kernel_inputs(
     sub: SubgraphBatch,
     x_global: torch.Tensor,  # [N, F]
@@ -266,6 +279,7 @@ def pos_operators(
         sub, x_global, max_ccn=max_ccn, strategy=strategy
     )
     if use_kernel:
+        _count_inputs(False, sel_idx, nbr_local, nbr_w, subg_x)
         xs = pos_power_rows(sel_idx, nbr_local, nbr_w, subg_x, sign_k=sign_k)
         return xs * row_mask[:, None, :, None], row_mask
 
@@ -310,18 +324,59 @@ def pos_operators_global(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """PoS(+) operators straight from node sets + the GLOBAL neighbor table.
 
-    No local-structure assembly: the kernel resolves subgraph membership
-    from ``row_ids`` (global ids, -1 on empty slots). Semantics match
-    :func:`pos_operators` (binary sub-adjacency, target-link removal, CCN
-    selection). Returns (xs [B, K+1, R, F+1] f32, row_mask [B, R]).
+    No local-structure assembly and no per-batch copy of the graph: the
+    kernel reads ``dg.nbr`` (up to each row's degree), ``dg.degrees()`` and
+    ``dg.x_with_indicator()`` by node id and resolves subgraph membership
+    from ``row_ids`` (global ids, -1 on empty slots); it drops the target
+    link itself. Semantics match :func:`pos_operators` (binary
+    sub-adjacency, target-link removal, CCN selection), and the bits those
+    of the same kernel on :func:`global_kernel_inputs`' gathered arrays.
+    Returns (xs [B, K+1, R, F+1] f32, row_mask [B, R]).
     """
     with span("pos.inputs"):
-        sel_idx, gnbr, w, subg_x, row_ids, row_mask = global_kernel_inputs(
+        sel_idx, row_ids, links, row_mask = by_id_kernel_inputs(
             dg, links, nodes, node_mask, max_ccn=max_ccn, strategy=strategy
         )
+        _count_inputs(True, sel_idx, row_ids, links)
     with span("pos.kernel"):
-        xs = pos_power_rows(sel_idx, gnbr, w, subg_x, sign_k=sign_k, row_ids=row_ids)
+        xs = pos_power_rows(sel_idx, dg.nbr, dg.degrees(), dg.x_with_indicator(),
+                            sign_k=sign_k, row_ids=row_ids, links=links)
     return xs * row_mask[:, None, :, None], row_mask
+
+
+def _target_rows_select(dg, links, nodes, node_mask, max_ccn, strategy):
+    """(sel_idx [B, R] i32, row_mask [B, R] bool) of the global route, from
+    the targets' link-removed rows [B, D] (utils.py:78-80) where CCN rows
+    are asked for."""
+    nbr0 = nbr1 = None
+    if max_ccn > 0:
+        nodes_l = nodes.long()
+        gnbr0 = dg.nbr[nodes_l[:, 0]]  # [B, D] (slot 0 = src, slot 1 = dst)
+        gnbr1 = dg.nbr[nodes_l[:, 1]]
+        w0 = dg.nbr_mask[nodes_l[:, 0]] & (gnbr0 != links[:, 1:2])
+        w1 = dg.nbr_mask[nodes_l[:, 1]] & (gnbr1 != links[:, 0:1])
+        nbr0 = ((gnbr0[:, :, None] == nodes[:, None, :]) & w0[:, :, None]).any(1)
+        nbr1 = ((gnbr1[:, :, None] == nodes[:, None, :]) & w1[:, :, None]).any(1)
+    return _ccn_select(nbr0, nbr1, node_mask, strategy, max_ccn, 2 + max_ccn)
+
+
+def by_id_kernel_inputs(
+    dg: DeviceGraph,
+    links: torch.Tensor,  # [B, 2]
+    nodes: torch.Tensor,  # [B, S]
+    node_mask: torch.Tensor,  # [B, S]
+    *,
+    max_ccn: int = 0,
+    strategy: str = "",
+):
+    """The per-batch inputs of :func:`pos_operators_global`'s by-id call:
+    (sel_idx [B, R] i32, row_ids [B, S] i32 (-1 on empty slots), links
+    [B, 2] i32, row_mask [B, R] bool). The kernel takes the graph's arrays
+    beside them."""
+    sel_idx, row_mask = _target_rows_select(dg, links.long(), nodes, node_mask, max_ccn, strategy)
+    row_ids = torch.where(node_mask, nodes, torch.full_like(nodes, -1))
+    return (sel_idx, row_ids.to(torch.int32).contiguous(),
+            links.to(torch.int32).contiguous(), row_mask)
 
 
 def global_kernel_inputs(
@@ -333,25 +388,17 @@ def global_kernel_inputs(
     max_ccn: int = 0,
     strategy: str = "",
 ):
-    """The kernel's inputs for :func:`pos_operators_global`: (sel_idx
-    [B, R] i32, nbr [B, S, D] i32 global ids, w [B, S, D] f32, subg_x
-    [B, S, F+1] f32, row_ids [B, S] i32, row_mask [B, R] bool)."""
+    """The global route's kernel inputs as gathered per-batch arrays:
+    (sel_idx [B, R] i32, nbr [B, S, D] i32 global ids, w [B, S, D] f32,
+    subg_x [B, S, F+1] f32, row_ids [B, S] i32, row_mask [B, R] bool). No
+    route builds them: they are the plain version that the tests and
+    ``chip_smoke.py`` hold :func:`pos_operators_global`'s by-id call
+    against."""
     B, S = nodes.shape
     dev = nodes.device
     links = links.long()
     nodes_l = nodes.long()
-    # Target rows (slot 0 = src, slot 1 = dst), link-removed (utils.py:78-80).
-    gnbr0 = dg.nbr[nodes_l[:, 0]]  # [B, D]
-    gnbr1 = dg.nbr[nodes_l[:, 1]]
-    w0 = dg.nbr_mask[nodes_l[:, 0]] & (gnbr0 != links[:, 1:2])
-    w1 = dg.nbr_mask[nodes_l[:, 1]] & (gnbr1 != links[:, 0:1])
-
-    R = 2 + max_ccn
-    nbr0 = nbr1 = None
-    if max_ccn > 0:
-        nbr0 = ((gnbr0[:, :, None] == nodes[:, None, :]) & w0[:, :, None]).any(1)
-        nbr1 = ((gnbr1[:, :, None] == nodes[:, None, :]) & w1[:, :, None]).any(1)
-    sel_idx, row_mask = _ccn_select(nbr0, nbr1, node_mask, strategy, max_ccn, R)
+    sel_idx, row_mask = _target_rows_select(dg, links, nodes, node_mask, max_ccn, strategy)
 
     gnbr = dg.nbr[nodes_l]  # [B, S, D] global neighbor ids
     # Binary adjacency (tuned_SIGN.py:155 implicit 1s); contributions FROM
@@ -578,6 +625,7 @@ def _extract_and_operate(
             sel_idx, loc, _, subg_x, row_mask = local_table_kernel_inputs(
                 dg, links, nodes, node_mask, max_ccn=max_ccn, strategy=strategy
             )
+            _count_inputs(False, sel_idx, loc, subg_x)
         with span("pos.kernel"):
             xs = pos_power_rows(sel_idx, loc, None, subg_x, sign_k=sign_k)
         return xs * row_mask[:, None, :, None], row_mask
@@ -831,7 +879,10 @@ def precompute_pos(
     Counters (``profiling.count``), each batch: ``pos.batches``,
     ``pos.links``, the links by node sets (``pos.links.host_bfs``,
     ``pos.links.device_bfs``, ``pos.links.walks``) and by table
-    (``pos.links.global_table``, ``pos.links.local_table``), and the
+    (``pos.links.global_table``, ``pos.links.local_table``), the batches
+    whose kernel read the graph by id (``pos.inputs.by_id``: the global
+    table's) and the bytes of the kernel inputs built for them on the card
+    (``pos.inputs.bytes``; :func:`_count_inputs`), and the
     kernel's subgraph slots, ``pos.slots_used`` (min(size, bucket) summed
     over the batch's links, from the plan's host-side sizes) against
     ``pos.slots`` (the bucket a link); ScaLed's walk batches, whose sizes

@@ -96,6 +96,24 @@ class DeviceGraph:
             object.__setattr__(self, "_degrees", deg)
         return deg
 
+    def x_with_indicator(self) -> torch.Tensor:
+        """[N, F+1] float32 on the device: a zero column, then ``x``, made
+        once per graph. The PoS kernel reads a subgraph's features from it by
+        node id and writes the indicator into column 0 itself, so the rows
+        keep the [indicator | x] layout with no per-batch copy.
+
+        It is a second copy of ``x`` beside it, made only on a graph whose
+        PoS operators take the global route: ``x`` stays the contiguous
+        [N, F] array that the SoP chain's CSR kernel takes
+        (``_build.check_arg`` refuses a strided view such as this copy's
+        ``[:, 1:]``), and the local route reads it too (42 MB for
+        BlogCatalog's 1,025 columns)."""
+        x1 = self.__dict__.get("_x_with_indicator")
+        if x1 is None:
+            x1 = torch.nn.functional.pad(self.x.float(), (1, 0)).contiguous()
+            object.__setattr__(self, "_x_with_indicator", x1)
+        return x1
+
     def repeats_a_neighbor(self) -> bool:
         """Whether a row's live prefix of ``nbr`` names one neighbor twice
         (a repeated edge), found once per graph: without repeats no row of a

@@ -9,6 +9,7 @@ installed:
     python -m pytest -p no:cacheprovider -q -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -601,21 +602,23 @@ def _hub_batch(dev, B=4, S=1024, F=128):
 
 @pytest.mark.gpu
 def test_kernel_at_the_hub_shape_matches_plain_version():
-    """``pos_power_rows`` at the hub-dense shape: global ids on the
-    3,392-wide global table, whose rows the selector kernel reads twice;
-    PoS+ rows (intersection CCN, R = 34) included."""
-    from s3grl_tpu_torch.operators.pos import global_kernel_inputs
+    """``pos_power_rows`` at the hub-dense shape: the 3,392-wide global
+    table read by id, each member row up to its degree (a row longer than
+    the selector kernel's staging row read twice); PoS+ rows (intersection
+    CCN, R = 34) included."""
+    from s3grl_tpu_torch.operators.pos import by_id_kernel_inputs
 
     dev = _cuda()
     dg, links, nd = _hub_batch(dev)
     nodes = torch.as_tensor(np.where(nd >= 0, nd, 0), device=dev)
     mask = torch.as_tensor(nd >= 0, device=dev)
     for ccn in (0, 32):
-        sel, nbr, w, x, row_ids, _ = global_kernel_inputs(
+        sel, row_ids, lk, _ = by_id_kernel_inputs(
             dg, torch.as_tensor(links, device=dev), nodes, mask,
             max_ccn=ccn, strategy="intersection")
-        got = pos_power_rows(sel, nbr, w, x, sign_k=3, row_ids=row_ids)
-        want = pos_power_rows_reference(sel, nbr, w, x, sign_k=3, row_ids=row_ids)
+        args = (sel, dg.nbr, dg.degrees(), dg.x_with_indicator())
+        got = pos_power_rows(*args, sign_k=3, row_ids=row_ids, links=lk)
+        want = pos_power_rows_reference(*args, sign_k=3, row_ids=row_ids, links=lk)
         torch.testing.assert_close(got, want, **TOL)
 
 
@@ -831,18 +834,21 @@ def test_pos_power_rows_without_weights_equals_the_slots_weights_on_the_card(whi
 @pytest.mark.parametrize("ccn", [0, 32])
 def test_pos_power_rows_on_the_local_table_equals_the_global_call(which, ccn):
     """``pos_power_rows`` in local-slot mode on the card-built table gives
-    the bits of the global-id call on the same node sets."""
-    from s3grl_tpu_torch.operators.pos import global_kernel_inputs, local_table_kernel_inputs
+    the bits of the by-id call on the same node sets."""
+    from s3grl_tpu_torch.operators.pos import by_id_kernel_inputs, local_table_kernel_inputs
+    from s3grl_tpu_torch.ops.pos_kernel import gather_by_id
 
     dev = _cuda()
     dg, links, nodes, mask = _card_batches(dev)[which]
     kw = dict(max_ccn=ccn, strategy="union")
-    sel, nbr, w, x, row_ids, rm = global_kernel_inputs(dg, links, nodes, mask, **kw)
-    want = pos_power_rows(sel, nbr, w, x, sign_k=3, row_ids=row_ids)
+    sel, row_ids, lk, rm = by_id_kernel_inputs(dg, links, nodes, mask, **kw)
+    graph = (dg.nbr, dg.degrees(), dg.x_with_indicator())
+    want = pos_power_rows(sel, *graph, sign_k=3, row_ids=row_ids, links=lk)
+    x = gather_by_id(*graph, row_ids, lk)[2]
     lsel, loc, lw, lx, lrm = local_table_kernel_inputs(dg, links, nodes, mask, **kw)
     assert torch.equal(lsel, sel) and torch.equal(lrm, rm) and torch.equal(lx, x)
     assert lw is None
-    assert loc.shape[2] <= nbr.shape[2]
+    assert loc.shape[2] <= dg.nbr.shape[1]
     got = pos_power_rows(lsel, loc, lw, lx, sign_k=3)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -1003,29 +1009,160 @@ def test_split_selector_repeats_bit_for_bit_with_general_weights(mode):
 @pytest.mark.gpu
 def test_pos_power_rows_split_equals_the_one_block_path_on_the_hub(monkeypatch):
     """``pos_power_rows`` on a BlogCatalog-shaped batch (B = 8 at S = 4,096
-    on the 3,392-wide global table) takes the split selector by the rule,
-    and its output equals the one-block path's bit for bit."""
+    on the 3,392-wide global table, read by id) takes the split selector by
+    the rule, and its output equals the one-block path's bit for bit."""
     from s3grl_tpu_torch import profiling
-    from s3grl_tpu_torch.operators.pos import global_kernel_inputs
+    from s3grl_tpu_torch.operators.pos import by_id_kernel_inputs
     from s3grl_tpu_torch.ops import pos_kernel as pk
 
     dev = _cuda()
     dg, links, nd = _hub_batch(dev, B=8, S=4096)
     nodes = torch.as_tensor(np.where(nd >= 0, nd, 0), device=dev)
     mask = torch.as_tensor(nd >= 0, device=dev)
-    sel, nbr, w, x, row_ids, _ = global_kernel_inputs(
-        dg, torch.as_tensor(links, device=dev), nodes, mask)
+    sel, row_ids, lk, _ = by_id_kernel_inputs(dg, torch.as_tensor(links, device=dev), nodes, mask)
+    args = (sel, dg.nbr, dg.degrees(), dg.x_with_indicator())
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert pk.selector_row_blocks(8, 4096, sms) > 1
     c0 = profiling.counters()
-    got = pos_power_rows(sel, nbr, w, x, sign_k=3, row_ids=row_ids)
+    got = pos_power_rows(*args, sign_k=3, row_ids=row_ids, links=lk)
     c1 = profiling.counters()
     assert c1["pos.selector.split_calls"] - c0.get("pos.selector.split_calls", 0) == 1
     assert c1["pos.selector.blocks"] - c0.get("pos.selector.blocks", 0) == sms
     monkeypatch.setattr(pk, "selector_row_blocks", lambda B, S, sms: 1)
-    want = pos_power_rows(sel, nbr, w, x, sign_k=3, row_ids=row_ids)
+    want = pos_power_rows(*args, sign_k=3, row_ids=row_ids, links=lk)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@functools.lru_cache(maxsize=None)
+def _blog_graph(F):
+    """The BlogCatalog-sized power-law graph (hub degree 3,377; a global
+    table 3,392 wide) with F seeded normal feature columns on the card."""
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from torch_port_helpers import blogcatalog_like_edges
+
+    ei = blogcatalog_like_edges(1)
+    n = int(ei.max()) + 1
+    x = np.random.default_rng(5).normal(size=(n, F)).astype(np.float32)
+    return DeviceGraph.from_graph(Graph(num_nodes=n, edge_index=ei, x=x), device="cuda"), ei
+
+
+def _by_id_batch(B, S, F=128, links="edges", sign_k=3, ccn=0):
+    """(dg, links [B, 2], nodes, mask) on the card: B links of the
+    BlogCatalog-sized graph and their 2-hop node sets at S from the host
+    core. ``links``: "edges" (observed), "mixed" (edges and non-edges in
+    turn), "hub" (the hub's own edges, the hub at slot 0 or 1 in turn) or
+    "sparse" (the edges of the lowest-degree nodes, so subgraphs leave
+    slots empty)."""
+    from s3grl_tpu_torch import native
+
+    dg, ei = _blog_graph(F)
+    rng = np.random.default_rng(B * 7919 + S)
+    deg = np.bincount(ei[0], minlength=dg.num_nodes)
+    if links == "hub":
+        pick = np.flatnonzero(ei[0] == int(np.argmax(deg)))[:B]
+        lk = ei[:, pick].T.copy()
+        lk[1::2] = lk[1::2, ::-1].copy()
+    elif links == "sparse":
+        lk = ei[:, np.argsort(deg[ei[0]] + deg[ei[1]], kind="stable")[:B]].T.copy()
+    else:
+        lk = ei[:, rng.choice(ei.shape[1], B, replace=False)].T.copy()
+        if links == "mixed":
+            lk[1::2, 1] = rng.integers(0, dg.num_nodes, len(lk[1::2]))
+            lk[1::2, 1] = np.where(lk[1::2, 1] == lk[1::2, 0], (lk[1::2, 0] + 1) % dg.num_nodes,
+                                   lk[1::2, 1])
+    lk = np.ascontiguousarray(lk.astype(np.int32))
+    nd, _ = native.khop_nodes(*dg.host_csr(), lk, 2, S)
+    dev = dg.device
+    return (dg, torch.as_tensor(lk, device=dev),
+            torch.as_tensor(np.where(nd >= 0, nd, 0), device=dev),
+            torch.as_tensor(nd >= 0, device=dev))
+
+
+# The by-id call against the gathered one: the split selector at BlogCatalog's
+# batch (B = 8 and 1 at S = 4,096), hub rows longer than the staging row on
+# the one-block kernel, the target link's rows for edges and non-edges,
+# empty slots, PoS+ (R = 34, the tiled X pass), an odd column count (F + 1 =
+# 33, one float a lane) and the X pass alone (sign_k 0).
+BY_ID_CASES = {
+    "split-B8": dict(B=8, S=4096, F=1025),
+    "split-B1": dict(B=1, S=4096, F=1025),
+    "hub-rows": dict(B=16, S=256, links="hub"),
+    "edges-and-non-edges": dict(B=64, S=512, links="mixed"),
+    "empty-slots": dict(B=16, S=4096, links="sparse"),
+    "pos-plus-R34": dict(B=8, S=256, ccn=32, links="mixed"),
+    "odd-F": dict(B=8, S=512, F=32, links="mixed"),
+    "sign-k-0": dict(B=8, S=512, sign_k=0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(BY_ID_CASES))
+def test_by_id_call_equals_the_gathered_call_bit_for_bit(name):
+    """``pos_power_rows`` reading the graph's own table, degrees and
+    features by node id gives the bits of the same kernel on the gathered
+    per-batch arrays of ``global_kernel_inputs`` (the route before it read
+    by id), and matches the plain version."""
+    from s3grl_tpu_torch.operators.pos import by_id_kernel_inputs, global_kernel_inputs
+    from s3grl_tpu_torch.ops.pos_kernel import selector_row_blocks
+
+    dev = _cuda()
+    c = BY_ID_CASES[name]
+    dg, links, nodes, mask = _by_id_batch(**c)
+    K = c.get("sign_k", 3)
+    kw = dict(max_ccn=c.get("ccn", 0), strategy="union")
+    B, S = nodes.shape
+    degs = dg.degrees()[nodes[mask].long()]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if name.startswith("split"):
+        assert selector_row_blocks(B, S, sms) > 1
+    if name == "hub-rows":
+        assert selector_row_blocks(B, S, sms) == 1 and int(degs.max()) > 1024
+    if name == "empty-slots":
+        assert not bool(mask.all())
+    gsel, gnbr, gw, gx, gids, grm = global_kernel_inputs(dg, links, nodes, mask, **kw)
+    want = pos_power_rows(gsel, gnbr, gw, gx, sign_k=K, row_ids=gids)
+    sel, row_ids, lk, rm = by_id_kernel_inputs(dg, links, nodes, mask, **kw)
+    assert torch.equal(sel, gsel) and torch.equal(row_ids, gids) and torch.equal(rm, grm)
+    assert sel.shape[1] == 2 + kw["max_ccn"]
+    args = (sel, dg.nbr, dg.degrees(), dg.x_with_indicator())
+    before = pos_power_rows.launches
+    got = pos_power_rows(*args, sign_k=K, row_ids=row_ids, links=lk)
+    torch.cuda.synchronize()
+    assert pos_power_rows.launches == before + 1
+    assert torch.equal(got, want)
+    ref = pos_power_rows_reference(*args, sign_k=K, row_ids=row_ids, links=lk)
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.gpu
+def test_precompute_pos_by_id_equals_the_gathered_route_on_the_card(monkeypatch):
+    """``precompute_pos``' global route, which reads the graph by id, gives
+    the dataset of the same route on ``global_kernel_inputs``' gathered
+    arrays bit for bit, and counts every batch in ``pos.inputs.by_id``."""
+    from s3grl_tpu_torch import profiling
+    from s3grl_tpu_torch.operators import pos as tpos
+
+    dev = _cuda("it holds the card's by-id route against the gathered one")
+    dg, links, _ = _hub_batch(dev, B=48)
+    y = np.ones(len(links), np.float32)
+    kw = dict(num_hops=2, sign_k=3, max_subgraph_nodes=1024, batch_size=16, device=dev)
+    monkeypatch.setenv("S3GRL_TPU_LOCAL_TAB", "0")
+    c0 = profiling.counters()
+    got = tpos.precompute_pos(dg, links, y, **kw)
+    c1 = profiling.counters()
+    n_batches = c1["pos.batches"] - c0.get("pos.batches", 0)
+    assert c1["pos.inputs.by_id"] - c0.get("pos.inputs.by_id", 0) == n_batches > 0
+
+    def gathered(dg, links, nodes, node_mask, *, sign_k, max_ccn=0, strategy=""):
+        sel, nbr, w, x, ids, rm = tpos.global_kernel_inputs(dg, links, nodes, node_mask,
+                                                           max_ccn=max_ccn, strategy=strategy)
+        return pos_power_rows(sel, nbr, w, x, sign_k=sign_k, row_ids=ids) * rm[:, None, :, None], rm
+
+    monkeypatch.setattr(tpos, "pos_operators_global", gathered)
+    want = tpos.precompute_pos(dg, links, y, **kw)
+    assert torch.equal(got.xs, want.xs) and torch.equal(got.row_mask, want.row_mask)
 
 
 # The worst relative gap of a link's SoP rows (``benchmark.cellbase.

@@ -77,15 +77,18 @@ class _StubLib:
     def s3grl_pos_selector_smem(self, *args):
         return 1024
 
+    def s3grl_pos_stage_width(self, *args):
+        return 0
+
     def s3grl_pos_selector_split_smem(self, S, has_ids, P):
         return 1024
 
     def s3grl_pos_selector_rows(self, *args):
-        self.calls.append(("one_block", args[6]))
+        self.calls.append(("one_block", args[8]))
         return 0
 
     def s3grl_pos_selector_split(self, *args):
-        self.calls.append(("split", args[9], args[14]))
+        self.calls.append(("split", args[11], args[16]))
         return 0
 
 

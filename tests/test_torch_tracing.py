@@ -129,10 +129,14 @@ def test_counters_equal_the_plan(monkeypatch, route):
            if k.startswith("pos.") and after[k] != before.get(k, 0)}
     nodes = "host_bfs" if route.startswith("host") else "device_bfs"
     used = sum(int(np.minimum(sizes[idx], b).sum()) for b, idx in plan.batches)
+    # By id a batch's kernel inputs are its row ids [B, S], selected rows
+    # [B, 2] and links [B, 2], int32.
+    built = sum(4 * len(idx) * (b + 4) for b, idx in plan.batches)
     assert got == {
         "pos.batches": len(plan.batches), "pos.links": len(links),
         f"pos.links.{nodes}": len(links), "pos.links.global_table": len(links),
-        "pos.slots_used": used, "pos.slots": sum(b * len(idx) for b, idx in plan.batches)}
+        "pos.slots_used": used, "pos.slots": sum(b * len(idx) for b, idx in plan.batches),
+        "pos.inputs.by_id": len(plan.batches), "pos.inputs.bytes": built}
     assert 0 < used < got["pos.slots"]
 
 
