@@ -91,10 +91,20 @@ from s3grl_tpu_torch.sampling.extraction import (
 from s3grl_tpu_torch.sampling.random_walk import extract_rw_subgraphs
 
 # Dataset footprint limit before the bf16 and host tiers when
-# ``S3GRL_TPU_DEVICE_DS_BYTES`` is unset, as in the JAX package (pos.py:818):
-# the tiers change the dataset's dtype or CCN width, so the port reads the
-# same variable with the same default to produce the same datasets.
+# ``S3GRL_TPU_DEVICE_DS_BYTES`` is unset and the dataset stays off a CUDA
+# card, as in the JAX package (pos.py:818): the tiers change the dataset's
+# dtype or CCN width, so the port reads the same variable with the same
+# default to produce the same datasets.
 DEVICE_DS_BYTES = 3.5e9
+# With the variable unset, a dataset bound for a CUDA card may take this
+# share of the card's memory instead (3.5e9 was sized for a TPU's). A
+# quarter leaves the rest to what lives beside it: ``fit_signnet`` holds the
+# train, valid and test datasets on the card at once (train is 85 % of the
+# links), and ``precompute_pos`` the dataset beside each batch's transients
+# (``ELEM_BUDGET`` float32 elements, 1 GB, each) and the graph. On an 80 GB
+# card: 20 GB, so Cora's PoS+ train split (7.4 GB at R = 18) stays float32
+# at its full CCN width.
+CARD_DS_SHARE = 0.25
 # f32 elements per transient [B, S, *] tensor, bounding the batch per bucket.
 ELEM_BUDGET = 256_000_000
 # The host-extract route's threshold on L·E, the JAX package's setting
@@ -158,20 +168,22 @@ def _slot_kernel_inputs(x_global, nodes, node_mask, nbr_local, nbr_w, *, max_ccn
     [B, S] and their local table [B, S, D]: (sel_idx [B, R] i32, nbr_local,
     nbr_w, subg_x [B, S, F+1] f32, row_mask [B, R] bool), R = 2 + max_ccn.
     ``nbr_w`` None weighs 1 every slot >= 0. CCN membership compares the
-    targets' rows with the slots. Invalid CCN slots point at row 0; the row
-    mask zeroes them afterwards."""
+    targets' rows with the slots (span ``pos.ccn``). Invalid CCN slots point
+    at row 0; the row mask zeroes them afterwards."""
     B, S = nodes.shape
     dev = nodes.device
     x_sub = x_global[nodes.long()] * node_mask[:, :, None].to(torch.float32)
     ind = torch.zeros((B, S, 1), dtype=torch.float32, device=dev)
     ind[:, :2] = 1.0  # the indicator column on the targets (tuned_SIGN.py:177)
     subg_x = torch.cat([ind, x_sub], dim=-1)  # [B, S, F+1]
-    nbr0 = nbr1 = None
-    if max_ccn > 0:
+    if max_ccn <= 0:
+        sel_idx, row_mask = _ccn_select(None, None, node_mask, strategy, max_ccn, 2 + max_ccn)
+        return sel_idx, nbr_local, nbr_w, subg_x, row_mask
+    with span("pos.ccn"):
         w0, w1 = (None, None) if nbr_w is None else (nbr_w[:, 0], nbr_w[:, 1])
         nbr0 = _slot_neighbors(nbr_local[:, 0], w0, S)
         nbr1 = _slot_neighbors(nbr_local[:, 1], w1, S)
-    sel_idx, row_mask = _ccn_select(nbr0, nbr1, node_mask, strategy, max_ccn, 2 + max_ccn)
+        sel_idx, row_mask = _ccn_select(nbr0, nbr1, node_mask, strategy, max_ccn, 2 + max_ccn)
     return sel_idx, nbr_local, nbr_w, subg_x, row_mask
 
 
@@ -347,9 +359,10 @@ def pos_operators_global(
 def _target_rows_select(dg, links, nodes, node_mask, max_ccn, strategy):
     """(sel_idx [B, R] i32, row_mask [B, R] bool) of the global route, from
     the targets' link-removed rows [B, D] (utils.py:78-80) where CCN rows
-    are asked for."""
-    nbr0 = nbr1 = None
-    if max_ccn > 0:
+    are asked for (span ``pos.ccn``)."""
+    if max_ccn <= 0:
+        return _ccn_select(None, None, node_mask, strategy, max_ccn, 2 + max_ccn)
+    with span("pos.ccn"):
         nodes_l = nodes.long()
         gnbr0 = dg.nbr[nodes_l[:, 0]]  # [B, D] (slot 0 = src, slot 1 = dst)
         gnbr1 = dg.nbr[nodes_l[:, 1]]
@@ -357,7 +370,7 @@ def _target_rows_select(dg, links, nodes, node_mask, max_ccn, strategy):
         w1 = dg.nbr_mask[nodes_l[:, 1]] & (gnbr1 != links[:, 0:1])
         nbr0 = ((gnbr0[:, :, None] == nodes[:, None, :]) & w0[:, :, None]).any(1)
         nbr1 = ((gnbr1[:, :, None] == nodes[:, None, :]) & w1[:, :, None]).any(1)
-    return _ccn_select(nbr0, nbr1, node_mask, strategy, max_ccn, 2 + max_ccn)
+        return _ccn_select(nbr0, nbr1, node_mask, strategy, max_ccn, 2 + max_ccn)
 
 
 def by_id_kernel_inputs(
@@ -439,18 +452,11 @@ def batch_cap(bucket: int, F: int, D_tab: int, eff_ccn: int, batch_size: int) ->
 CCN_PAD_PCT = 100
 
 
-def measure_ccn_width(
-    dg: DeviceGraph, links: np.ndarray, strategy: str, cap: int
-) -> int:
-    """Tight upper bound on CCN row count over ``links`` from the GLOBAL
-    graph (a subgraph CCN set is a subset of the global 1-hop sets).
-
-    The reference keeps exactly |CCN| rows per link (tuned_SIGN.py:238); the
-    fixed-shape analog sizes R to the measured max, capped at ``cap``, or,
-    with :data:`CCN_PAD_PCT` below 100, to that percentile of the counts
-    (JAX pos.py:543-573). A width below the measured max warns "CCN width
-    capped", in the JAX package's words.
-    """
+def ccn_counts(dg: DeviceGraph, links: np.ndarray, strategy: str) -> np.ndarray:
+    """[L] each link's CCN count on the GLOBAL graph, the target link
+    removed: |N(s) ∩ N(d)| (intersection) or |N(s) ∪ N(d)| without s and d
+    (union). A subgraph's CCN set is a subset of the global one, and equal
+    to it where the BFS keeps the targets' whole first hop."""
     import scipy.sparse as ssp
 
     src_e, dst_e, _ = dg.host_edges()
@@ -462,11 +468,28 @@ def measure_ccn_width(
     s, d = links[:, 0], links[:, 1]
     cn = np.asarray(A[s].multiply(A[d]).sum(axis=1)).ravel()
     if strategy == "intersection":
-        counts = cn
-    else:  # union: |N(s)| + |N(d)| - CN, minus the (removed) target edge
-        deg = np.asarray(A.sum(axis=1)).ravel()
-        has_edge = np.asarray(A[s, d]).ravel()
-        counts = deg[s] + deg[d] - cn - 2 * has_edge
+        return cn.astype(np.int64)
+    # union: |N(s)| + |N(d)| - CN, minus the (removed) target edge
+    deg = np.asarray(A.sum(axis=1)).ravel()
+    has_edge = np.asarray(A[s, d]).ravel()
+    return (deg[s] + deg[d] - cn - 2 * has_edge).astype(np.int64)
+
+
+def measure_ccn_width(
+    dg: DeviceGraph, links: np.ndarray, strategy: str, cap: int,
+    counts: Optional[np.ndarray] = None,
+) -> int:
+    """Tight upper bound on CCN row count over ``links`` from the GLOBAL
+    graph (:func:`ccn_counts`, or ``counts`` where the caller has them).
+
+    The reference keeps exactly |CCN| rows per link (tuned_SIGN.py:238); the
+    fixed-shape analog sizes R to the measured max, capped at ``cap``, or,
+    with :data:`CCN_PAD_PCT` below 100, to that percentile of the counts
+    (JAX pos.py:543-573). A width below the measured max warns "CCN width
+    capped", in the JAX package's words.
+    """
+    if counts is None:
+        counts = ccn_counts(dg, links, strategy)
     measured = int(counts.max()) if len(counts) else 0
     pct = float(CCN_PAD_PCT)
     if len(counts) and pct < 100:
@@ -486,13 +509,15 @@ def measure_ccn_width(
     return width
 
 
-def padded_ccn_width(dg: DeviceGraph, links: np.ndarray, strategy: str, max_ccn: int) -> int:
+def padded_ccn_width(dg: DeviceGraph, links: np.ndarray, strategy: str, max_ccn: int,
+                     counts: Optional[np.ndarray] = None) -> int:
     """PoS+'s CCN row count for ``links``: the measured width (cap
     ``max_ccn``, 16 where it is not positive), rounded up to a power of two
-    (capped) as the JAX package rounds it; the dataset's shape follows it."""
+    (capped) as the JAX package rounds it; the dataset's shape follows it.
+    ``counts``: :func:`ccn_counts`' where the caller has them."""
     if max_ccn <= 0:
         max_ccn = 16
-    eff_ccn = measure_ccn_width(dg, links, strategy, max_ccn)
+    eff_ccn = measure_ccn_width(dg, links, strategy, max_ccn, counts)
     if eff_ccn and max_ccn >= 8:
         r = 8
         while r < eff_ccn:
@@ -649,6 +674,8 @@ class PosPlan:
     nodes_all: Optional[np.ndarray]  # the whole split's host BFS table, or None
     extract_kw: dict  # the keywords of _extract_and_operate but max_nodes
     sizes: Optional[np.ndarray] = None  # [L] the sizes bucketed by; None for walks
+    store_tier: str = "f32"  # the storage tier's name: f32, bf16 or host
+    ccn_counts: Optional[np.ndarray] = None  # [L] ccn_counts' where CCN rows are kept
 
     def route(self, dg: DeviceGraph, bucket: int) -> tuple[str, str]:
         """How a batch in ``bucket`` runs: its node sets (``host``,
@@ -680,13 +707,27 @@ class PosPlan:
 
 
 def _storage_tier(L: int, sign_k: int, F: int, eff_ccn: int, dev: torch.device):
-    """(CCN width, dtype, device) of the dataset (JAX pos.py:818-849): f32
-    on the device, else bf16 on the device (storage only; compute stays
-    f32), with the CCN pad halved down the power-of-two ladder first if even
-    bf16 does not fit; f32 on the host at the full width if the halved bf16
-    tier exceeds 2x budget. The budget is ``S3GRL_TPU_DEVICE_DS_BYTES``,
-    read at each call, else :data:`DEVICE_DS_BYTES`."""
-    budget = float(os.environ.get("S3GRL_TPU_DEVICE_DS_BYTES", DEVICE_DS_BYTES))
+    """(CCN width, dtype, device) of the dataset: :func:`_storage_plan`'s
+    without the tier's name."""
+    return _storage_plan(L, sign_k, F, eff_ccn, dev)[:3]
+
+
+def _storage_plan(L: int, sign_k: int, F: int, eff_ccn: int, dev: torch.device):
+    """(CCN width, dtype, device, tier) of the dataset (JAX pos.py:818-849):
+    ``f32`` on the device, else ``bf16`` on the device (storage only;
+    compute stays f32), with the CCN pad halved down the power-of-two ladder
+    first if even bf16 does not fit; ``host``, f32 at the full width, if the
+    halved bf16 tier exceeds 2x budget. The budget is
+    ``S3GRL_TPU_DEVICE_DS_BYTES``, read at each call; unset,
+    :data:`CARD_DS_SHARE` of the card's memory where ``dev`` is a CUDA card,
+    else :data:`DEVICE_DS_BYTES`."""
+    var = os.environ.get("S3GRL_TPU_DEVICE_DS_BYTES")
+    if var is not None:
+        budget = float(var)
+    elif dev.type == "cuda":
+        budget = CARD_DS_SHARE * torch.cuda.get_device_properties(dev).total_memory
+    else:
+        budget = DEVICE_DS_BYTES
 
     def _est(r_ccn: int, bytes_per: int) -> int:
         return L * (sign_k + 1) * (2 + r_ccn) * (F + 1) * bytes_per
@@ -695,7 +736,7 @@ def _storage_tier(L: int, sign_k: int, F: int, eff_ccn: int, dev: torch.device):
     while eff_dev > 2 and _est(eff_dev, 2) > budget:
         eff_dev //= 2
     if _est(eff_dev, 2) > 2 * budget:
-        return eff_ccn, torch.float32, torch.device("cpu")
+        return eff_ccn, torch.float32, torch.device("cpu"), "host"
     if eff_dev < eff_ccn:
         warnings.warn(
             f"PoS+ CCN pad halved {eff_ccn} -> {eff_dev} to fit the device "
@@ -704,8 +745,9 @@ def _storage_tier(L: int, sign_k: int, F: int, eff_ccn: int, dev: torch.device):
             f"F={F}); densest links lose their furthest CCN rows.",
             stacklevel=3,
         )
-    dtype = torch.float32 if _est(eff_dev, 4) <= budget else torch.bfloat16
-    return eff_dev, dtype, dev
+    if _est(eff_dev, 4) <= budget:
+        return eff_dev, torch.float32, dev, "f32"
+    return eff_dev, torch.bfloat16, dev, "bf16"
 
 
 def subgraph_sizes(
@@ -792,12 +834,14 @@ def pos_plan(
     rounded up to a multiple of it (JAX pos.py:897-903), so that a mesh's
     ranks split every full batch evenly."""
     L = links.shape[0]
-    eff_ccn = (
-        padded_ccn_width(dg, links, k_node_set_strategy, max_ccn) if k_heuristic > 0 else 0
-    )
+    eff_ccn, counts = 0, None
+    if k_heuristic > 0:
+        with span("pos.ccn_width"):
+            counts = ccn_counts(dg, links, k_node_set_strategy)
+            eff_ccn = padded_ccn_width(dg, links, k_node_set_strategy, max_ccn, counts)
     D_tab = int(dg.nbr.shape[1])
     F = int(dg.x.shape[1])
-    eff_ccn, store_dtype, store_dev = _storage_tier(L, sign_k, F, eff_ccn, dg.device)
+    eff_ccn, store_dtype, store_dev, tier = _storage_plan(L, sign_k, F, eff_ccn, dg.device)
 
     buckets = _size_buckets(buckets, max_subgraph_nodes)
     host = host_extract_route(dg, L, scaled=bool(rw_m and rw_M), ratio_per_hop=ratio_per_hop,
@@ -835,7 +879,7 @@ def pos_plan(
         extract_kw=dict(num_hops=num_hops, ratio_per_hop=ratio_per_hop,
                         max_nodes_per_hop=max_nodes_per_hop, sign_k=sign_k, max_ccn=eff_ccn,
                         strategy=k_node_set_strategy, rw_m=rw_m, rw_M=rw_M),
-        sizes=None if scaled else sizes,
+        sizes=None if scaled else sizes, store_tier=tier, ccn_counts=counts,
     )
 
 
@@ -874,9 +918,14 @@ def precompute_pos(
     its share of every batch.
 
     Spans (``profiling.span``): ``pos.precompute`` around the call,
-    ``pos.plan`` around the plan and ``pos.batch/<nodes>/<table>/<S>``
-    around each batch with its store (``PosPlan.route`` names the route).
-    Counters (``profiling.count``), each batch: ``pos.batches``,
+    ``pos.plan`` around the plan, ``pos.ccn_width`` in it around PoS+'s
+    CCN counts and width (:func:`ccn_counts`, :func:`padded_ccn_width`),
+    ``pos.batch/<nodes>/<table>/<S>`` around each batch with its store
+    (``PosPlan.route`` names the route) and ``pos.ccn`` around a batch's CCN
+    selection (in ``pos.inputs`` on the global and local tables). Counters
+    (``profiling.count``), each call: the storage tier, ``pos.store.f32``,
+    ``pos.store.bf16`` or ``pos.store.host`` (:func:`_storage_plan`). Each
+    batch: ``pos.batches``,
     ``pos.links``, the links by node sets (``pos.links.host_bfs``,
     ``pos.links.device_bfs``, ``pos.links.walks``) and by table
     (``pos.links.global_table``, ``pos.links.local_table``), the batches
@@ -885,8 +934,12 @@ def precompute_pos(
     (``pos.inputs.bytes``; :func:`_count_inputs`), and the
     kernel's subgraph slots, ``pos.slots_used`` (min(size, bucket) summed
     over the batch's links, from the plan's host-side sizes) against
-    ``pos.slots`` (the bucket a link); ScaLed's walk batches, whose sizes
-    the host does not know, count no slots.
+    ``pos.slots`` (the bucket a link), and where CCN rows are kept
+    ``pos.ccn.rows`` (min(count, CCN width) summed over the batch's links,
+    from the plan's :func:`ccn_counts`: exact where the BFS keeps the
+    targets' whole first hop) against ``pos.ccn.slots`` (the CCN width a
+    link); ScaLed's walk batches, whose sizes the host does not know, count
+    no slots and no CCN rows.
     """
     from s3grl_tpu_torch.utils.device import resolve_device
 
@@ -909,6 +962,7 @@ def precompute_pos(
                 seed=seed, rw_m=rw_m, rw_M=rw_M, size_oracle=size_oracle,
                 batch_multiple=batch_multiple,
             )
+        count(f"pos.store.{plan.store_tier}")
         F = int(dg.x.shape[1])
         xs_all = torch.zeros((L, sign_k + 1, 2 + plan.eff_ccn, F + 1), dtype=plan.store_dtype,
                              device=plan.store_dev)
@@ -942,3 +996,6 @@ def _count_batch(plan: PosPlan, nodes: str, table: str, bucket: int, idx: np.nda
     if plan.sizes is not None:
         count("pos.slots_used", int(np.minimum(plan.sizes[idx], bucket).sum()))
         count("pos.slots", int(bucket) * n)
+        if plan.ccn_counts is not None:
+            count("pos.ccn.rows", int(np.minimum(plan.ccn_counts[idx], plan.eff_ccn).sum()))
+            count("pos.ccn.slots", plan.eff_ccn * n)

@@ -1212,3 +1212,70 @@ def test_precompute_sop_at_usair_size_against_the_plain_reference(features):
     got = ds.xs[torch.as_tensor(pick, device=dev)].cpu().numpy()
     want = sop_rows(ref_graph(inp, dev), links[pick], sign_k=3).cpu().numpy()
     assert worst_relative_gap(got, want) <= SOP_GAP
+
+
+# The worst relative gap of a link's PoS Plus rows between the card and the
+# CPU path (plain versions of the kernels), both float32: the same sums in
+# another order, ~1e-7 of a block's largest entry.
+POS_PLUS_GAP = 5e-6
+
+
+@pytest.mark.gpu
+def test_cora_pos_plus_train_split_on_the_card(monkeypatch):
+    """The benchmark's Cora-shaped PoS Plus train split (17,952 links, 3
+    hops, intersection CCN, 1,433 features) through ``precompute_pos`` on
+    the card with the storage budget unset: float32 at R = 2 + the padded
+    CCN width (16 on this split), no "CCN pad halved" warning, the tiled X
+    pass (K·R = 54 > 32) launched, and 48 of its links (the 24 with the
+    most common neighbours, 24 drawn) equal to the CPU path within
+    :data:`POS_PLUS_GAP`, their row masks exactly."""
+    import json
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.cellbase import program_graph, worst_relative_gap
+    from benchmark.kinds.pos_plus_prep import make_inputs
+    from s3grl_tpu_torch import profiling
+    from s3grl_tpu_torch.operators import pos as tpos
+
+    dev = _cuda()
+    monkeypatch.delenv("S3GRL_TPU_DEVICE_DS_BYTES", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs", "cora_pos_plus.json")) as f:
+        config = json.load(f)
+    p = config["pos"]
+    kw = dict(num_hops=p["num_hops"], sign_k=p["sign_k"], buckets=tuple(p["buckets"]),
+              batch_size=p["extract_batch_size"], max_subgraph_nodes=p["max_subgraph_nodes"],
+              k_heuristic=p["k_heuristic"], k_node_set_strategy=p["k_node_set_strategy"],
+              max_ccn=p["max_ccn_nodes"], seed=1)
+    inp = make_inputs(config, 2**33 + 29)
+    links, y = inp.split.links("train")
+    dg = program_graph(inp, dev)
+    counts = tpos.ccn_counts(dg, links, p["k_node_set_strategy"])
+    assert tpos.padded_ccn_width(dg, links, p["k_node_set_strategy"], p["max_ccn_nodes"],
+                                 counts) == 16
+    c0 = profiling.counters()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ds = tpos.precompute_pos(dg, links, y, device=dev, **kw)
+            torch.cuda.synchronize()
+    c1 = profiling.counters()
+    assert not [w for w in seen if "CCN" in str(w.message)], [str(w.message) for w in seen]
+    assert ds.xs.dtype == torch.float32 and ds.xs.device.type == "cuda"
+    assert tuple(ds.xs.shape) == (len(links), p["sign_k"] + 1, 18, inp.x.shape[1] + 1)
+    assert c1["pos.store.f32"] - c0.get("pos.store.f32", 0) == 1
+    assert c1.get("pos.store.bf16", 0) == c0.get("pos.store.bf16", 0)
+    assert c1.get("pos.store.host", 0) == c0.get("pos.store.host", 0)
+    names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+    assert any("pos_xpass_tiled_kernel" in n for n in names), sorted(names)
+    rng = np.random.default_rng(5)
+    pick = np.concatenate([np.argsort(-counts, kind="stable")[:24],
+                           rng.choice(len(links), 24, replace=False)])
+    want = tpos.precompute_pos(program_graph(inp, "cpu"), links[pick], y[pick], device="cpu",
+                               **kw)
+    idx = torch.as_tensor(pick, device=dev)
+    assert torch.equal(ds.row_mask[idx].cpu(), want.row_mask)
+    assert worst_relative_gap(ds.xs[idx].cpu().numpy(), want.xs.numpy()) <= POS_PLUS_GAP

@@ -136,7 +136,8 @@ def test_counters_equal_the_plan(monkeypatch, route):
         "pos.batches": len(plan.batches), "pos.links": len(links),
         f"pos.links.{nodes}": len(links), "pos.links.global_table": len(links),
         "pos.slots_used": used, "pos.slots": sum(b * len(idx) for b, idx in plan.batches),
-        "pos.inputs.by_id": len(plan.batches), "pos.inputs.bytes": built}
+        "pos.inputs.by_id": len(plan.batches), "pos.inputs.bytes": built,
+        "pos.store.f32": 1}
     assert 0 < used < got["pos.slots"]
 
 
