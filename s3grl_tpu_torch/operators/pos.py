@@ -24,10 +24,15 @@ no sampling is asked and ``L·E`` reaches :data:`HOST_EXTRACT_MIN_LE` (1e8;
 ``S3GRL_TPU_HOST_EXTRACT`` = ``auto``, ``0`` or ``1`` overrides), the
 threaded C++ BFS of ``native/graphcore.cpp`` builds the node sets on the
 host, in the device BFS's order ((hop, node id), src and dst first), so the
-dataset is the same bits. Where ``L·max_subgraph_nodes`` <= 6.4e7 one pass
-over the whole split runs first, its size column the bucketing oracle;
-above that ``native.bfs_sizes`` sizes the split and each batch takes its
-own pass. Below the threshold everything runs on the device.
+dataset is the same bits. Where ``W = min(max_subgraph_nodes,
+KHOP_TABLE_ENTRIES // L)`` reaches the smallest bucket, one pass over the
+whole split at width W runs first: its sizes are the bucketing oracle
+(exact below W; ``native.bfs_sizes`` sizes the links whose rows stopped at
+a W below the cap), and a batch slices its node sets from its table where
+the bucket is at most W or each of the batch's rows ended below W. Other
+batches take a pass of their own, as every batch does, after
+``native.bfs_sizes`` has sized the split, where W is below the smallest
+bucket. Below the threshold everything runs on the device.
 
 The local-table route (JAX ``pos_operators_local``, pos.py:440-512, and its
 per-bucket branch under ``S3GRL_TPU_LOCAL_TAB=1``, pos.py:1023-1046): on
@@ -110,8 +115,11 @@ ELEM_BUDGET = 256_000_000
 # The host-extract route's threshold on L·E, the JAX package's setting
 # (pos.py:674-676).
 HOST_EXTRACT_MIN_LE = 1e8
-# The whole-split host BFS pass runs while its [L, max_subgraph_nodes] int32
-# table holds at most this many entries (~256 MB), as in the JAX package.
+# The most int32 entries (~256 MB) of the host route's whole-split BFS
+# table, as in the JAX package: the table is [L, W] with W =
+# min(max_subgraph_nodes, KHOP_TABLE_ENTRIES // L), and the pass runs where
+# W reaches the smallest bucket (module docstring). 0 leaves every batch to
+# its own pass.
 KHOP_TABLE_ENTRIES = 6.4e7
 # ``S3GRL_TPU_LOCAL_TAB=auto`` takes the local-table route in a bucket whose
 # S is at most this share of the global table's width (local_table_route):
@@ -688,13 +696,25 @@ class PosPlan:
                                   sampled=samples(kw["ratio_per_hop"], kw["max_nodes_per_hop"]))
         return "host" if self.host else "device", "local" if local else "global"
 
+    def reads_table(self, bucket: int, idx: np.ndarray) -> bool:
+        """Whether the links ``idx`` in ``bucket`` take their node sets from
+        the plan's host table: the bucket is at most its width W, or each of
+        their rows ended below W and so holds the whole subgraph."""
+        if self.nodes_all is None:
+            return False
+        width = self.nodes_all.shape[1]
+        return bucket <= width or bool((self.sizes[idx] < width).all())
+
     def operate(self, dg: DeviceGraph, links: np.ndarray, bucket: int, idx: np.ndarray):
         """(xs, row_mask) of the links ``links[idx]`` in ``bucket``."""
         dev = dg.device
         host_nodes = None
         if self.host:
-            if self.nodes_all is not None:
+            if self.reads_table(bucket, idx):
                 host_nodes = self.nodes_all[idx, :bucket]
+                pad = bucket - host_nodes.shape[1]
+                if pad > 0:
+                    host_nodes = np.pad(host_nodes, ((0, 0), (0, pad)), constant_values=-1)
             else:
                 with span("pos.host_bfs"):
                     host_nodes, _ = native.khop_nodes(*dg.host_csr(), links[idx],
@@ -789,15 +809,19 @@ def _sizes_and_table(dg, links, *, num_hops, ratio_per_hop, max_nodes_per_hop, b
                                          buckets=buckets, max_subgraph_nodes=max_subgraph_nodes,
                                          batch_size=batch_size)
         return np.full(L, bucket, dtype=np.int32), None
-    if host and table and L * max_subgraph_nodes <= KHOP_TABLE_ENTRIES:
-        # One host BFS pass over the whole split: its node prefix does not
-        # depend on the cap, so slicing its table to a bucket's width equals
-        # a call at that width. Its sizes are exact below the cap and at
-        # least the cap where the BFS stopped early, so clamped they are the
-        # bucketing oracle.
+    width = min(max_subgraph_nodes, int(KHOP_TABLE_ENTRIES // max(L, 1)))
+    if host and table and width >= buckets[0]:
+        # One host BFS pass over the whole split at the widest table the
+        # entry budget allows: its node prefix does not depend on the cap,
+        # so slicing a row to a bucket's width equals a call at that width.
+        # Its sizes are exact below the width and at least the width where
+        # the BFS stopped early; below the cap those links alone are sized
+        # by a full pass. Clamped, they are the bucketing oracle.
         with span("pos.host_bfs"):
-            nodes_all, sizes = native.khop_nodes(*dg.host_csr(), links, num_hops,
-                                                 max_subgraph_nodes)
+            nodes_all, sizes = native.khop_nodes(*dg.host_csr(), links, num_hops, width)
+            cut = np.flatnonzero(sizes >= width) if width < max_subgraph_nodes else []
+            if len(cut):
+                sizes[cut] = native.bfs_sizes(*dg.host_csr(), links[cut], num_hops)
         return np.minimum(sizes, max_subgraph_nodes), nodes_all
     if host:
         with span("pos.host_bfs"):
@@ -927,7 +951,9 @@ def precompute_pos(
     ``pos.store.bf16`` or ``pos.store.host`` (:func:`_storage_plan`). Each
     batch: ``pos.batches``,
     ``pos.links``, the links by node sets (``pos.links.host_bfs``,
-    ``pos.links.device_bfs``, ``pos.links.walks``) and by table
+    ``pos.links.device_bfs``, ``pos.links.walks``), the host batches' links
+    sliced from the plan's host table (``pos.links.host_table``; 0 for a
+    host batch that ran its own pass) and by table
     (``pos.links.global_table``, ``pos.links.local_table``), the batches
     whose kernel read the graph by id (``pos.inputs.by_id``: the global
     table's) and the bytes of the kernel inputs built for them on the card
@@ -992,6 +1018,8 @@ def _count_batch(plan: PosPlan, nodes: str, table: str, bucket: int, idx: np.nda
     count("pos.batches")
     count("pos.links", n)
     count(_NODE_COUNTERS[nodes], n)
+    if nodes == "host":
+        count("pos.links.host_table", n if plan.reads_table(bucket, idx) else 0)
     count(f"pos.links.{table}_table", n)
     if plan.sizes is not None:
         count("pos.slots_used", int(np.minimum(plan.sizes[idx], bucket).sum()))

@@ -648,6 +648,40 @@ def test_host_and_device_routes_give_the_same_dataset_on_the_card(monkeypatch):
 
 
 @pytest.mark.gpu
+def test_a_host_table_narrower_than_the_cap_gives_the_device_routes_dataset_on_the_card(
+        monkeypatch):
+    """The host route with its whole-split table 700 wide under a cap of
+    1,024 (sizes 442-1,050): bucket 512 sliced from it, the first batch of
+    bucket 1,024 (rows that ended below 700) padded from it, the others by
+    passes of their own; the device route's dataset bit for bit."""
+    from s3grl_tpu_torch.data.graph import Graph
+    from s3grl_tpu_torch.operators import pos as tpos
+    from s3grl_tpu_torch.sampling.extraction import DeviceGraph
+    from torch_port_helpers import random_edges
+
+    dev = _cuda("it holds the card's two routes against each other")
+    rng = np.random.default_rng(5)
+    n = 3000
+    ei = random_edges(rng, n=n, e=30_000)
+    x = rng.normal(size=(n, 16)).astype(np.float32)
+    dg = DeviceGraph.from_graph(Graph(num_nodes=n, edge_index=ei, x=x), device=dev)
+    links = rng.integers(0, n, (600, 2)).astype(np.int32)
+    y = np.ones(600, np.float32)
+    kw = dict(num_hops=2, sign_k=3, max_subgraph_nodes=1024, k_heuristic=1,
+              k_node_set_strategy="union", max_ccn=16)
+    monkeypatch.setenv("S3GRL_TPU_HOST_EXTRACT", "0")
+    want = tpos.precompute_pos(dg, links, y, device=dev, **kw)
+    monkeypatch.setenv("S3GRL_TPU_HOST_EXTRACT", "1")
+    monkeypatch.setattr(tpos, "KHOP_TABLE_ENTRIES", 700 * len(links))
+    plan = tpos.pos_plan(dg, links, **kw)
+    served = [(b, plan.reads_table(b, idx)) for b, idx in plan.batches]
+    assert (512, True) in served and (1024, True) in served and (1024, False) in served
+    got = tpos.precompute_pos(dg, links, y, device=dev, **kw)
+    assert torch.equal(got.row_mask, want.row_mask)
+    assert torch.equal(got.xs, want.xs)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("c", [1025, 4, 1])
 def test_bsr_kernel_on_a_row_shard_matches_plain_version(c):
     """``bsr_spmm`` on one rank's [rows, N_pad] shard of a 2-way row

@@ -3,7 +3,8 @@
 ``s3grl_tpu_torch/native`` (a byte-identical ``graphcore.cpp``, its own
 loader) against scipy and Python oracles and against the JAX package's
 core where that one built; six concurrent builds; the host-extract route of
-``precompute_pos`` (whole-split and per-batch) bit for bit against the
+``precompute_pos`` (whole-split, per-batch and a table narrower than the
+cap) bit for bit against the
 device route, and within the kernel's bar (rtol 2e-3, atol 2e-4) against
 the JAX host route; its threshold; the CCN width and its warning.
 """
@@ -207,22 +208,64 @@ POS_KW = dict(num_hops=2, sign_k=3, buckets=(16, 32, 64), batch_size=8,
               k_node_set_strategy="intersection", max_ccn=4)
 
 
-@pytest.mark.parametrize("route", ["whole-split", "per-batch"])
+# route -> (num_hops, the host table's width W as KHOP_TABLE_ENTRIES // L,
+# or None for the constant's own). At one hop the sizes are 12-25 in buckets
+# 16 and 32 (cap 64); at two all reach the cap.
+TABLE_ROUTES = {
+    "whole-split": (2, None),  # W = cap
+    "per-batch": (2, 0),  # no table
+    "partial-table": (1, 20),  # bucket 16 sliced, 32 whole rows padded or own passes
+    "rows-below-width": (1, 28),  # every row ends below W < cap: Cora's shape
+}
+
+
+def _counting(monkeypatch) -> list:
+    """Wrap ``native.khop_nodes`` and ``native.bfs_sizes``: the returned
+    list gets (name, number of links) of each call."""
+    calls = []
+    for name in ("khop_nodes", "bfs_sizes"):
+        def shim(*args, _fn=getattr(native, name), _name=name, **kw):
+            calls.append((_name, len(args[2])))
+            return _fn(*args, **kw)
+        monkeypatch.setattr(native, name, shim)
+    return calls
+
+
+@pytest.mark.parametrize("route", sorted(TABLE_ROUTES))
 def test_host_extract_route_equals_the_device_route(monkeypatch, route):
     """Bit for bit against the device route (the same node sets, order and
-    operators), and within the kernel's bar against the JAX host route."""
+    operators), and within the kernel's bar against the JAX host route;
+    with the whole-split table at a width below the cap, one pass over the
+    split and ``bfs_sizes`` on the links it cut short alone."""
     jd, td, links, y = _pos_graph()
+    hops, width = TABLE_ROUTES[route]
+    kw = {**POS_KW, "num_hops": hops}
     monkeypatch.setenv("S3GRL_TPU_HOST_EXTRACT", "0")
-    dev = tpos.precompute_pos(td, links, y, device="cpu", **POS_KW)
+    dev = tpos.precompute_pos(td, links, y, device="cpu", **kw)
     monkeypatch.setenv("S3GRL_TPU_HOST_EXTRACT", "1")
-    if route == "per-batch":
-        monkeypatch.setattr(tpos, "KHOP_TABLE_ENTRIES", 0)
-    host = tpos.precompute_pos(td, links, y, device="cpu", **POS_KW)
+    if width is not None:
+        monkeypatch.setattr(tpos, "KHOP_TABLE_ENTRIES", width * len(links))
+    if width:
+        sizes = native.bfs_sizes(*td.host_csr(), links, hops)
+        plan = tpos.pos_plan(td, links, **kw)
+        served = [plan.reads_table(b, idx) for b, idx in plan.batches]
+        # The smallest bucket's rows are sliced; some wider one's are padded.
+        assert served[0] and any(s and b > width for (b, _), s in zip(plan.batches, served))
+        calls = _counting(monkeypatch)
+    host = tpos.precompute_pos(td, links, y, device="cpu", **kw)
     assert tpos.host_extract_route(td, len(links), scaled=False, ratio_per_hop=1.0,
                                    max_nodes_per_hop=None)
     torch.testing.assert_close(host.row_mask, dev.row_mask, rtol=0, atol=0)
     torch.testing.assert_close(host.xs, dev.xs, rtol=0, atol=0)
-    want = jpos.precompute_pos(jd, links, y, **POS_KW)
+    if width:
+        cut = int((sizes >= width).sum())
+        own = [("khop_nodes", len(idx)) for (_, idx), s in zip(plan.batches, served) if not s]
+        assert calls == [("khop_nodes", len(links))] + [("bfs_sizes", cut)] * (cut > 0) + own
+        if route == "partial-table":
+            assert cut and own
+        else:
+            assert not cut and all(served)
+    want = jpos.precompute_pos(jd, links, y, **kw)
     np.testing.assert_array_equal(np.asarray(want.row_mask), host.row_mask.numpy())
     np.testing.assert_allclose(np.asarray(want.xs), host.xs.numpy(), **TOL)
 

@@ -14,7 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 import s3grl_tpu_torch.data.graph as tgraph
 import s3grl_tpu_torch.operators.pos as tpos
 import s3grl_tpu_torch.sampling.extraction as text
-from s3grl_tpu_torch import profiling
+from s3grl_tpu_torch import native, profiling
 from s3grl_tpu_torch.train.loop import fit_signnet
 from tests.torch_port_helpers import one_torch_thread, random_edges
 
@@ -132,13 +132,38 @@ def test_counters_equal_the_plan(monkeypatch, route):
     # By id a batch's kernel inputs are its row ids [B, S], selected rows
     # [B, 2] and links [B, 2], int32.
     built = sum(4 * len(idx) * (b + 4) for b, idx in plan.batches)
+    # The whole-split table at the cap serves every host batch.
+    table = {"pos.links.host_table": len(links)} if route == "host-whole" else {}
     assert got == {
         "pos.batches": len(plan.batches), "pos.links": len(links),
         f"pos.links.{nodes}": len(links), "pos.links.global_table": len(links),
         "pos.slots_used": used, "pos.slots": sum(b * len(idx) for b, idx in plan.batches),
         "pos.inputs.by_id": len(plan.batches), "pos.inputs.bytes": built,
-        "pos.store.f32": 1}
+        "pos.store.f32": 1, **table}
     assert 0 < used < got["pos.slots"]
+
+
+@pytest.mark.parametrize("width", [50, 0], ids=["partial-table", "no-table"])
+def test_host_table_counts_the_links_it_served(monkeypatch, width):
+    """``pos.links.host_table``: with the host table at a width W below the
+    cap (every size here is 38-79, cap 64), the links of the batches whose
+    bucket is at most W or whose sizes all lie below it; with no table
+    (``KHOP_TABLE_ENTRIES`` 0), none."""
+    dg, links, y = _graph(seed=9)
+    _route(monkeypatch, "host-whole")
+    monkeypatch.setattr(tpos, "KHOP_TABLE_ENTRIES", width * len(links))
+    kw = {k: v for k, v in POS_KW.items() if k != "device"}
+    sizes = native.bfs_sizes(*dg.host_csr(), links, kw["num_hops"])
+    plan = tpos.pos_plan(dg, links, **kw)
+    served = sum(len(idx) for b, idx in plan.batches
+                 if width and (b <= width or (sizes[idx] < width).all()))
+    before = profiling.counters()
+    tpos.precompute_pos(dg, links, y, **POS_KW)
+    after = profiling.counters()
+    got = {k: after.get(k, 0) - before.get(k, 0)
+           for k in ("pos.links.host_table", "pos.links.host_bfs")}
+    assert got == {"pos.links.host_table": served, "pos.links.host_bfs": len(links)}
+    assert (0 < served < len(links)) if width else served == 0
 
 
 def test_walk_batches_count_no_slots():
@@ -345,4 +370,30 @@ def test_graph_step_share_reads_the_programs_counters(monkeypatch, counters, wan
     else:
         monkeypatch.setattr(profiling, "counters", lambda: dict(counters))
     got = spec.reader("fit.graph_step_share")(TraceContext())
+    assert got == (None if want is None else pytest.approx(want))
+
+
+@pytest.mark.parametrize("counters,want", [
+    ({"pos.links.host_bfs": 17_952, "pos.links.host_table": 17_952}, 100.0),
+    ({"pos.links.host_bfs": 40, "pos.links.host_table": 8}, 20.0),
+    ({"pos.links.host_bfs": 40, "pos.links.host_table": 0}, 0.0),
+    ({"pos.links.host_bfs": 40}, None),
+    ({"pos.links.device_bfs": 526, "pos.links": 526}, None),
+    ({"pos.links.host_bfs": 0, "pos.links.host_table": 0}, None),
+    ({}, None),
+    (None, None),
+])
+def test_host_table_share_reads_the_programs_counters(monkeypatch, counters, want):
+    """``prep.host_table_share``: 100 x the host links the plan's table
+    served / every host link; None where no link took the host route or the
+    program keeps no ``pos.links.host_table`` (a commit before it, or no
+    counters at all)."""
+    from benchmark import spec
+    from benchmark.cellbase import TraceContext
+
+    if counters is None:
+        monkeypatch.delattr(profiling, "counters")
+    else:
+        monkeypatch.setattr(profiling, "counters", lambda: dict(counters))
+    got = spec.reader("prep.host_table_share")(TraceContext())
     assert got == (None if want is None else pytest.approx(want))
