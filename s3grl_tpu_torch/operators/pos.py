@@ -295,12 +295,15 @@ def pos_operators(
 
     Returns (xs [B, K+1, R, F+1], row_mask [B, R]) with R = 2 + max_ccn.
     """
-    sel_idx, nbr_local, nbr_w, subg_x, row_mask = local_kernel_inputs(
-        sub, x_global, max_ccn=max_ccn, strategy=strategy
-    )
+    with span("pos.inputs"):
+        sel_idx, nbr_local, nbr_w, subg_x, row_mask = local_kernel_inputs(
+            sub, x_global, max_ccn=max_ccn, strategy=strategy
+        )
+        if use_kernel:
+            _count_inputs(False, sel_idx, nbr_local, nbr_w, subg_x)
     if use_kernel:
-        _count_inputs(False, sel_idx, nbr_local, nbr_w, subg_x)
-        xs = pos_power_rows(sel_idx, nbr_local, nbr_w, subg_x, sign_k=sign_k)
+        with span("pos.kernel"):
+            xs = pos_power_rows(sel_idx, nbr_local, nbr_w, subg_x, sign_k=sign_k)
         return xs * row_mask[:, None, :, None], row_mask
 
     # Sym-normalized edge weights (tuned_SIGN.py:155-161):
@@ -630,19 +633,33 @@ def _extract_and_operate(
     rw_m: int = 0,
     rw_M: int = 0,
     host_nodes: Optional[np.ndarray] = None,
+    walk_sums: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One link batch (JAX ``_extract_and_operate``): its node sets, by
     ScaLed's walks (``rw_m``/``rw_M``), the host BFS's table ``host_nodes``
     [B, S] (-1 on empty slots) or the device BFS, then their PoS(+)
     operators through ``pos_power_rows``, on the global table or, where
     :func:`local_table_route` takes it, on the local tables the card builds.
+    A walk batch adds to ``walk_sums`` [3] int64 on the card, where given,
+    its links' filled slots (min(members, S)), kept CCN rows and the members
+    that the bucket leaves out of its slots.
     Returns (xs [B, K+1, R, F+1], row_mask [B, R])."""
     dev = links.device
     if rw_m and rw_M:
-        sub = extract_rw_subgraphs(dg, links, link_seeds, rw_m=rw_m, rw_M=rw_M,
-                                   max_nodes=max_nodes)
-        return pos_operators(sub, dg.x, sign_k=sign_k, max_ccn=max_ccn, strategy=strategy,
-                             use_kernel=True)
+        with span("pos.walks"):
+            sub = extract_rw_subgraphs(dg, links, link_seeds, rw_m=rw_m, rw_M=rw_M,
+                                       max_nodes=max_nodes)
+        xs, row_mask = pos_operators(sub, dg.x, sign_k=sign_k, max_ccn=max_ccn,
+                                     strategy=strategy, use_kernel=True)
+        if walk_sums is not None:
+            # Summed on the card; precompute_pos reads them once a call. The
+            # 2M walks visit at most 2 + 2·M·m nodes, so only a bucket below
+            # that can leave members out.
+            sums = [sub.node_mask.sum(), row_mask[:, 2:].sum()]
+            if max_nodes < 2 + 2 * rw_M * rw_m:
+                sums.append(sub.sub_size.sum() - sums[0])
+            walk_sums[:len(sums)] += torch.stack(sums)
+        return xs, row_mask
     if host_nodes is not None:
         nodes = torch.as_tensor(np.where(host_nodes >= 0, host_nodes, 0), device=dev)
         node_mask = torch.as_tensor(host_nodes >= 0, device=dev)
@@ -705,8 +722,10 @@ class PosPlan:
         width = self.nodes_all.shape[1]
         return bucket <= width or bool((self.sizes[idx] < width).all())
 
-    def operate(self, dg: DeviceGraph, links: np.ndarray, bucket: int, idx: np.ndarray):
-        """(xs, row_mask) of the links ``links[idx]`` in ``bucket``."""
+    def operate(self, dg: DeviceGraph, links: np.ndarray, bucket: int, idx: np.ndarray,
+                walk_sums: Optional[torch.Tensor] = None):
+        """(xs, row_mask) of the links ``links[idx]`` in ``bucket``;
+        ``walk_sums`` is :func:`_extract_and_operate`'s."""
         dev = dg.device
         host_nodes = None
         if self.host:
@@ -722,7 +741,8 @@ class PosPlan:
         return _extract_and_operate(
             dg, torch.as_tensor(links[idx], device=dev),
             torch.as_tensor(self.link_seeds[idx], device=dev),
-            max_nodes=int(bucket), host_nodes=host_nodes, **self.extract_kw,
+            max_nodes=int(bucket), host_nodes=host_nodes, walk_sums=walk_sums,
+            **self.extract_kw,
         )
 
 
@@ -945,8 +965,12 @@ def precompute_pos(
     ``pos.plan`` around the plan, ``pos.ccn_width`` in it around PoS+'s
     CCN counts and width (:func:`ccn_counts`, :func:`padded_ccn_width`),
     ``pos.batch/<nodes>/<table>/<S>`` around each batch with its store
-    (``PosPlan.route`` names the route) and ``pos.ccn`` around a batch's CCN
-    selection (in ``pos.inputs`` on the global and local tables). Counters
+    (``PosPlan.route`` names the route), in it ``pos.walks`` around a walk
+    batch's extraction (``extract_rw_subgraphs``: uniforms, steps, the
+    [B, N] membership mask, node-set selection and the gathered local
+    structure), ``pos.inputs`` around the kernel inputs' build and
+    ``pos.kernel`` around ``pos_power_rows`` on every route, and ``pos.ccn``
+    around a batch's CCN selection (in ``pos.inputs``). Counters
     (``profiling.count``), each call: the storage tier, ``pos.store.f32``,
     ``pos.store.bf16`` or ``pos.store.host`` (:func:`_storage_plan`). Each
     batch: ``pos.batches``,
@@ -964,8 +988,13 @@ def precompute_pos(
     ``pos.ccn.rows`` (min(count, CCN width) summed over the batch's links,
     from the plan's :func:`ccn_counts`: exact where the BFS keeps the
     targets' whole first hop) against ``pos.ccn.slots`` (the CCN width a
-    link); ScaLed's walk batches, whose sizes the host does not know, count
-    no slots and no CCN rows.
+    link). ScaLed's walk batches keep their sizes on the card: their
+    ``pos.slots_used`` (min(members, bucket)), ``pos.ccn.rows`` (the CCN rows
+    kept) and ``pos.walks.members`` (the walks' distinct nodes: the filled
+    slots, plus what a bucket below 2 + 2·M·m leaves out) are summed there
+    across the call and read once at its end
+    (:func:`read_walk_sums`), never a batch; ``pos.walks.mask_entries``
+    counts each batch's membership mask, B·N, from shapes on the host.
     """
     from s3grl_tpu_torch.utils.device import resolve_device
 
@@ -993,15 +1022,19 @@ def precompute_pos(
         xs_all = torch.zeros((L, sign_k + 1, 2 + plan.eff_ccn, F + 1), dtype=plan.store_dtype,
                              device=plan.store_dev)
         mask_all = torch.zeros((L, 2 + plan.eff_ccn), dtype=torch.bool, device=plan.store_dev)
+        walks = bool(plan.extract_kw["rw_m"] and plan.extract_kw["rw_M"])
+        walk_sums = torch.zeros(3, dtype=torch.int64, device=dev) if walks else None
         for bucket, idx in plan.batches:
             nodes, table = plan.route(dg, bucket)
             with span(f"pos.batch/{nodes}/{table}/{bucket}"):
-                xs, row_mask = plan.operate(dg, links, bucket, idx)
+                xs, row_mask = plan.operate(dg, links, bucket, idx, walk_sums)
                 with span("pos.store"):
                     idx_t = torch.as_tensor(idx, device=plan.store_dev)
                     xs_all[idx_t] = xs.to(device=plan.store_dev, dtype=plan.store_dtype)
                     mask_all[idx_t] = row_mask.to(plan.store_dev)
-            _count_batch(plan, nodes, table, bucket, idx)
+            _count_batch(plan, nodes, table, bucket, idx, dg.num_nodes)
+        if walks and plan.batches:
+            _count_walk_sums(plan, read_walk_sums(walk_sums))
 
     return OperatorDataset(
         xs=xs_all, row_mask=mask_all, y=np.asarray(y, dtype=np.float32)
@@ -1012,8 +1045,11 @@ _NODE_COUNTERS = {"host": "pos.links.host_bfs", "device": "pos.links.device_bfs"
                   "walks": "pos.links.walks"}
 
 
-def _count_batch(plan: PosPlan, nodes: str, table: str, bucket: int, idx: np.ndarray) -> None:
-    """:func:`precompute_pos`' counters of one batch, from host numbers only."""
+def _count_batch(plan: PosPlan, nodes: str, table: str, bucket: int, idx: np.ndarray,
+                 num_nodes: int) -> None:
+    """:func:`precompute_pos`' counters of one batch, from host numbers only.
+    A walk batch's filled slots and CCN rows lie on the card: the call adds
+    them once at its end (:func:`_count_walk_sums`)."""
     n = len(idx)
     count("pos.batches")
     count("pos.links", n)
@@ -1021,9 +1057,26 @@ def _count_batch(plan: PosPlan, nodes: str, table: str, bucket: int, idx: np.nda
     if nodes == "host":
         count("pos.links.host_table", n if plan.reads_table(bucket, idx) else 0)
     count(f"pos.links.{table}_table", n)
-    if plan.sizes is not None:
-        count("pos.slots_used", int(np.minimum(plan.sizes[idx], bucket).sum()))
-        count("pos.slots", int(bucket) * n)
-        if plan.ccn_counts is not None:
-            count("pos.ccn.rows", int(np.minimum(plan.ccn_counts[idx], plan.eff_ccn).sum()))
-            count("pos.ccn.slots", plan.eff_ccn * n)
+    count("pos.slots", int(bucket) * n)
+    if plan.ccn_counts is not None:
+        count("pos.ccn.slots", plan.eff_ccn * n)
+    if nodes == "walks":
+        count("pos.walks.mask_entries", n * num_nodes)  # the batch's [B, N] membership mask
+        return
+    count("pos.slots_used", int(np.minimum(plan.sizes[idx], bucket).sum()))
+    if plan.ccn_counts is not None:
+        count("pos.ccn.rows", int(np.minimum(plan.ccn_counts[idx], plan.eff_ccn).sum()))
+
+
+def read_walk_sums(walk_sums: torch.Tensor) -> list:
+    """The card's walk sums on the host: a call's one read of them."""
+    return walk_sums.tolist()
+
+
+def _count_walk_sums(plan: PosPlan, sums: list) -> None:
+    """The walk batches' card-side counters of one call (:func:`read_walk_sums`)."""
+    slots_used, ccn_rows, left_out = sums
+    count("pos.slots_used", slots_used)
+    count("pos.walks.members", slots_used + left_out)
+    if plan.ccn_counts is not None:
+        count("pos.ccn.rows", ccn_rows)

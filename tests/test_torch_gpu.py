@@ -1313,3 +1313,68 @@ def test_cora_pos_plus_train_split_on_the_card(monkeypatch):
     idx = torch.as_tensor(pick, device=dev)
     assert torch.equal(ds.row_mask[idx].cpu(), want.row_mask)
     assert worst_relative_gap(ds.xs[idx].cpu().numpy(), want.xs.numpy()) <= POS_PLUS_GAP
+
+
+@pytest.mark.gpu
+def test_cora_pos_plus_scaled_train_split_on_the_card(monkeypatch):
+    """The benchmark's ScaLed PoS Plus train split (17,952 links, walks of
+    m 3 and M 20, intersection CCN, 1,433 features) through
+    ``precompute_pos`` on the card: float32 at R = 18 in the one 256
+    bucket; the walk counters equal the plain reference's sums over every
+    link (``benchmark/workmodel_scaled.walk_work``), read from the card
+    once in the call; and 48 of its links (the 24 with the most CCN rows,
+    24 drawn) equal to the plain reference within the cell's ``ops_gap``
+    limit, their row masks exactly."""
+    import json
+
+    from benchmark import reference_scaled, workmodel_scaled
+    from benchmark.cellbase import program_graph, ref_graph, worst_relative_gap
+    from benchmark.kinds.scaled_prep import make_inputs
+    from s3grl_tpu_torch import profiling
+    from s3grl_tpu_torch.operators import pos as tpos
+
+    dev = _cuda()
+    monkeypatch.delenv("S3GRL_TPU_DEVICE_DS_BYTES", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs", "cora_pos_plus_scaled.json")) as f:
+        config = json.load(f)
+    with open(os.path.join(root, "benchmark", "limits", "cora_pos_plus_scaled.prep.json")) as f:
+        limit = json.load(f)["ops_gap"]
+    p = config["pos"]
+    seed = 2**31 - 9
+    kw = dict(num_hops=p["num_hops"], sign_k=p["sign_k"], buckets=tuple(p["buckets"]),
+              batch_size=p["extract_batch_size"], max_subgraph_nodes=p["max_subgraph_nodes"],
+              k_heuristic=p["k_heuristic"], k_node_set_strategy=p["k_node_set_strategy"],
+              max_ccn=p["max_ccn_nodes"], rw_m=p["m"], rw_M=p["M"], seed=seed)
+    inp = make_inputs(config)
+    links, y = inp.split.links("train")
+    dg = program_graph(inp, dev)
+    reads = []
+    real = tpos.read_walk_sums
+    monkeypatch.setattr(tpos, "read_walk_sums", lambda sums: reads.append(1) or real(sums))
+    c0 = profiling.counters()
+    ds = tpos.precompute_pos(dg, links, y, device=dev, **kw)
+    torch.cuda.synchronize()
+    c1 = profiling.counters()
+    got = {k: c1[k] - c0.get(k, 0) for k in c1 if k.startswith("pos.")}
+    assert ds.xs.dtype == torch.float32 and ds.xs.device.type == "cuda"
+    assert tuple(ds.xs.shape) == (len(links), p["sign_k"] + 1, 18, inp.x.shape[1] + 1)
+    assert reads == [1] and got["pos.batches"] == 71
+    g = ref_graph(inp, "cpu")
+    seeds = reference_scaled.link_seeds(seed, np.arange(len(links)))
+    w, ccn = workmodel_scaled.walk_work(g, links, seeds, rw_m=p["m"], rw_M=p["M"],
+                                        strategy=p["k_node_set_strategy"], max_ccn=16)
+    assert got["pos.walks.members"] == got["pos.slots_used"] == int(w["members"].sum())
+    assert got["pos.slots"] == 256 * len(links)
+    assert got["pos.walks.mask_entries"] == len(links) * inp.n
+    assert got["pos.ccn.rows"] == int(ccn.sum()) and got["pos.ccn.slots"] == 16 * len(links)
+    rng = np.random.default_rng(5)
+    pick = np.concatenate([np.argsort(-ccn, kind="stable")[:24],
+                           rng.choice(len(links), 24, replace=False)])
+    want, want_mask = reference_scaled.scaled_rows(
+        ref_graph(inp, dev), links[pick], pick, seed=seed, rw_m=p["m"], rw_M=p["M"],
+        sign_k=p["sign_k"], strategy=p["k_node_set_strategy"], max_ccn=p["max_ccn_nodes"],
+        width=18)
+    idx = torch.as_tensor(pick, device=dev)
+    assert torch.equal(ds.row_mask[idx].cpu(), want_mask.cpu())
+    assert worst_relative_gap(ds.xs[idx].cpu().numpy(), want.cpu().numpy()) <= limit

@@ -166,8 +166,14 @@ def test_host_table_counts_the_links_it_served(monkeypatch, width):
     assert (0 < served < len(links)) if width else served == 0
 
 
-def test_walk_batches_count_no_slots():
+def test_walk_batches_count_slots_summed_on_the_card():
+    """Walk batches count no slot from host sizes, which the plan does not
+    have: their filled slots are the walks' members summed on the card
+    (``pos.walks.members``, each below the bucket), and their slots the
+    bucket a link; the membership masks count B·N a batch."""
     dg, links, y = _graph(seed=2)
+    plan = tpos.pos_plan(dg, links, rw_m=2, rw_M=4,
+                         **{k: v for k, v in POS_KW.items() if k != "device"})
     before = profiling.counters()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         tpos.precompute_pos(dg, links, y, rw_m=2, rw_M=4, **POS_KW)
@@ -175,7 +181,10 @@ def test_walk_batches_count_no_slots():
     got = {k: after[k] - before.get(k, 0) for k in after if k.startswith("pos.")}
     assert got["pos.links"] == got["pos.links.walks"] == got["pos.links.local_table"] \
         == len(links)
-    assert got.get("pos.slots", 0) == got.get("pos.slots_used", 0) == 0
+    assert got["pos.slots"] == sum(b * len(idx) for b, idx in plan.batches)
+    assert 2 * len(links) < got["pos.slots_used"] == got["pos.walks.members"] < got["pos.slots"]
+    assert got["pos.walks.mask_entries"] == len(links) * dg.num_nodes
+    assert got.get("pos.ccn.rows", 0) == got.get("pos.ccn.slots", 0) == 0
     assert {e.name.split("/")[1] for e in _spans(prof) if e.name.startswith("pos.batch/")} \
         == {"walks"}
 
